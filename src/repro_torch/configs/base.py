@@ -1,0 +1,41 @@
+"""Model configuration for the dense decoders the port serves.
+
+An own copy of ``ModelConfig``, cut to the fields and properties the
+dense path reads. ``weight_sharding`` and ``kv_seq_shard`` are kept so
+that the per-arch ``config()`` functions stay verbatim copies; nothing
+in the port reads them until it has a mesh.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                      # dense (the only family ported so far)
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+
+    head_dim: int = 0                # 0 -> d_model // n_heads
+    qkv_bias: bool = False
+    rope: str = "rope"               # rope (mrope / sinusoidal / none: later slices)
+    rope_theta: float = 1e6
+    sliding_window: int = 0          # 0 -> full attention
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+
+    dtype: str = "bfloat16"          # weight and activation dtype
+    weight_sharding: str = "tp"      # sharding hint, unused without a mesh
+    kv_seq_shard: bool = False       # sharding hint, unused without a mesh
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or (self.d_model // self.n_heads)
+
+    def with_(self, **kw) -> "ModelConfig":
+        return replace(self, **kw)

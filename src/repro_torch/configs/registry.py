@@ -1,0 +1,40 @@
+"""--arch <id> registry. The ids are those of ``repro``; the dense ones are
+ported, the others raise until their slice lands."""
+from __future__ import annotations
+
+import importlib
+from typing import Dict, List
+
+from repro_torch.configs.base import ModelConfig
+
+_ARCH_MODULES: Dict[str, str] = {
+    "minicpm-2b": "repro_torch.configs.minicpm_2b",
+    "glm4-9b": "repro_torch.configs.glm4_9b",
+    "mistral-nemo-12b": "repro_torch.configs.mistral_nemo_12b",
+    "qwen2-1.5b": "repro_torch.configs.qwen2_1p5b",
+}
+
+_NOT_PORTED = ("zamba2-1.2b", "xlstm-350m", "whisper-base",
+               "granite-moe-3b-a800m", "dbrx-132b", "qwen2-vl-2b")
+
+ARCH_IDS: List[str] = list(_ARCH_MODULES)
+
+
+def _module(arch: str):
+    if arch in _NOT_PORTED:
+        raise NotImplementedError(f"arch {arch!r} is not ported yet; "
+                                  f"ported: {ARCH_IDS}")
+    if arch not in _ARCH_MODULES:
+        raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
+    return importlib.import_module(_ARCH_MODULES[arch])
+
+
+def get_config(arch: str) -> ModelConfig:
+    return _module(arch).config()
+
+
+def get_smoke_config(arch: str) -> ModelConfig:
+    return _module(arch).smoke_config()
+
+
+__all__ = ["ARCH_IDS", "get_config", "get_smoke_config"]

@@ -1,0 +1,62 @@
+"""Shared kernel utilities: the masking constant, ceiling division and the
+device rule every entry point follows."""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30  # large-negative instead of -inf: keeps masked softmax NaN-free
+
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}   # repro::DType in csrc/common.cuh
+HEAD_DIMS = (32, 64, 128)   # head dims the CUDA kernels are instantiated for
+
+
+def cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def check_launch(err: int, what: str) -> None:
+    """Raise on the cudaGetLastError() code a C entry point returned."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def check_aligned(what: str, *tensors: torch.Tensor) -> None:
+    """The kernels stage rows with 16-byte loads."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{what}: operands must start on a 16-byte boundary")
+
+
+def check_operands(what: str, *tensors: torch.Tensor) -> None:
+    """One supported dtype, contiguous, non-empty: what the kernels take
+    (checked on the CPU path too, so CPU tests see what the card gets)."""
+    dtype = tensors[0].dtype
+    if dtype not in DTYPE_CODES or any(t.dtype != dtype for t in tensors):
+        raise TypeError(f"{what}: operands must share one dtype of "
+                        f"{list(DTYPE_CODES)}, got {[t.dtype for t in tensors]}")
+    for t in tensors:
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: operands must be contiguous")
+        if t.numel() == 0:
+            raise ValueError(f"{what}: empty operand of shape {tuple(t.shape)}")
+
+
+def resolve_device(device=None) -> torch.device:
+    """``cuda`` unless the caller names another device; raises if CUDA is
+    asked for and absent (there is no silent move to the CPU)."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA was requested but torch.cuda.is_available() "
+                           "is false; pass device='cpu' to run on the CPU")
+    return dev
+
+
+def kernel_route(*tensors: torch.Tensor) -> str:
+    """'cuda' when every tensor lies on one CUDA device, 'cpu' when every
+    tensor lies on the CPU (the plain version's only use); raises else."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"tensors lie on several devices: {sorted(map(str, devices))}")
+    dev = devices.pop()
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"no kernel for device {dev}")
+    return dev.type

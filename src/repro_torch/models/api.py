@@ -1,0 +1,12 @@
+"""Unified model API: family dispatch. Every family module exposes init,
+forward, prefill, decode_step and init_cache."""
+from __future__ import annotations
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer
+
+
+def get_model(cfg: ModelConfig):
+    if cfg.family != "dense":
+        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    return transformer

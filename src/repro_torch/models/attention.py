@@ -1,0 +1,74 @@
+"""GQA attention layer: full-sequence forward (prefill) and single-token
+cached decode, with RoPE. Attention itself runs in the hand-written
+kernels; the projections are plain matmuls."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.decode_attention import ops as da_ops
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.models import common as cm
+
+
+def _project_qkv(p, cfg, x):
+    H, KH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    B, S = x.shape[:-2], x.shape[-2]
+    return (q.reshape(*B, S, H, hd), k.reshape(*B, S, KH, hd),
+            v.reshape(*B, S, KH, hd))
+
+
+def _rope_qk(cfg, q, k, positions):
+    if cfg.rope != "rope":
+        raise NotImplementedError(f"rope={cfg.rope!r} is not ported yet")
+    return (cm.apply_rope(q, positions, cfg.rope_theta),
+            cm.apply_rope(k, positions, cfg.rope_theta))
+
+
+def attn_forward(p, cfg, x, positions=None, causal=True):
+    """Full-sequence attention. x: (B,S,d)."""
+    return _attend(p, cfg, x, positions, causal)[0]
+
+
+def attn_prefill(p, cfg, x, positions=None):
+    """Causal forward; returns (out, (k, v)), k/v the cache slices (B,S,KH,hd)."""
+    return _attend(p, cfg, x, positions, True)
+
+
+def _attend(p, cfg, x, positions, causal):
+    B, S, _ = x.shape
+    q, k, v = _project_qkv(p, cfg, x)
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None, :]
+    q, k = _rope_qk(cfg, q, k, positions)
+    out = fa_ops.flash_attention(q, k, v, causal=causal,
+                                 window=cfg.sliding_window)
+    return out.reshape(B, S, -1) @ p["wo"], (k, v)
+
+
+def attn_decode(p, cfg, x, cache_k, cache_v, lengths):
+    """One-token decode. x: (B,d); cache_k/v: (B,Smax,KH,hd); lengths (B,)
+    int32 = number of valid tokens BEFORE this one.
+
+    Writes this token's K/V into the caches IN PLACE at position
+    ``lengths`` -- only where lengths < Smax: an idle serving slot's length
+    keeps growing past the cache, and there the write is skipped (the
+    JAX version's one-hot write matches nothing). Returns out (B,d).
+    """
+    B = x.shape[0]
+    q, k, v = _project_qkv(p, cfg, x[:, None, :])
+    q, k = _rope_qk(cfg, q, k, lengths[:, None])
+    S = cache_k.shape[1]
+    rows = torch.arange(B, device=x.device)
+    fits = (lengths < S)[:, None, None]
+    at = lengths.clamp(max=S - 1).long()
+    # where the slot is full, write back what is there: no host sync needed
+    cache_k[rows, at] = torch.where(fits, k[:, 0].to(cache_k.dtype), cache_k[rows, at])
+    cache_v[rows, at] = torch.where(fits, v[:, 0].to(cache_v.dtype), cache_v[rows, at])
+    out = da_ops.decode_attention(q[:, 0], cache_k, cache_v, lengths + 1,
+                                  window=cfg.sliding_window)
+    return out.reshape(B, -1) @ p["wo"]

@@ -1,0 +1,91 @@
+"""Shared model building blocks on tensors. Params are nested dicts of
+tensors with the JAX package's layout (``x @ W`` weights, a leading
+stacked-layer axis), so a ``repro`` checkpoint loads directly."""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict
+
+import torch
+
+VOCAB_PAD = 256
+
+
+def padded_vocab(v: int) -> int:
+    return -(-v // VOCAB_PAD) * VOCAB_PAD
+
+
+def compute_dtype(cfg) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+# ------------------------------------------------------------- param trees
+def nest(flat: Dict[str, Any]) -> Dict[str, Any]:
+    """{"a/b": x} -> {"a": {"b": x}} (keys as ``repro.train.checkpoint``'s
+    ``_flatten`` writes them)."""
+    tree: Dict[str, Any] = {}
+    for key, leaf in flat.items():
+        *path, name = key.split("/")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[name] = leaf
+    return tree
+
+
+def flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
+    """Inverse of ``nest``."""
+    flat: Dict[str, Any] = {}
+    for name, node in tree.items():
+        key = f"{prefix}{name}"
+        if isinstance(node, dict):
+            flat.update(flatten(node, key + "/"))
+        else:
+            flat[key] = node
+    return flat
+
+
+# ---------------------------------------------------------------- init utils
+def dense_init(gen: torch.Generator, fan_in: int, shape, dtype) -> torch.Tensor:
+    """N(0, 1/fan_in) drawn in fp32 on the generator's device, then cast."""
+    scale = 1.0 / math.sqrt(max(fan_in, 1))
+    x = torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
+    return (x * scale).to(dtype)
+
+
+# ------------------------------------------------------------------- norms
+def rmsnorm(x, p, eps: float):
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps) * p["scale"].float()
+    return out.to(x.dtype)
+
+
+# -------------------------------------------------------------------- RoPE
+def rope_freqs(head_dim: int, theta: float, device=None):
+    half = head_dim // 2
+    return 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
+                                         device=device) / half))
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (..., S, H, D); positions: broadcastable to (..., S)."""
+    D = x.shape[-1]
+    inv = rope_freqs(D, theta, x.device)                    # (D/2,)
+    ang = positions[..., None].float() * inv                # (..., S, D/2)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------- embeddings
+def embed_tokens(p, tokens):
+    return p["embed"][tokens.long()]
+
+
+def unembed(p, cfg, x):
+    w = p.get("unembed")
+    if w is None:
+        w = p["embed"].T
+    return x @ w

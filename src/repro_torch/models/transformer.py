@@ -1,0 +1,151 @@
+"""Decoder-only transformer LM, dense family.
+
+Layers are stacked along a leading axis, as in the JAX package, and run
+in a Python loop over per-layer views. Decode updates the KV cache in
+place.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Tuple
+
+import torch
+
+from repro_torch.kernels.common import resolve_device
+from repro_torch.models import attention as attn
+from repro_torch.models import common as cm
+from repro_torch.models import mlp as mlp_mod
+
+
+def param_shapes(cfg) -> Dict[str, Tuple[int, ...]]:
+    """Flat ``/``-joined param keys -> shapes (the JAX checkpoint layout)."""
+    d, L, f = cfg.d_model, cfg.n_layers, cfg.d_ff
+    hq = cfg.n_heads * cfg.resolved_head_dim
+    hkv = cfg.n_kv_heads * cfg.resolved_head_dim
+    vp = cm.padded_vocab(cfg.vocab_size)
+    s = {"emb/embed": (vp, d)}
+    if not cfg.tie_embeddings:
+        s["emb/unembed"] = (d, vp)
+    s.update({
+        "layers/ln1/scale": (L, d),
+        "layers/attn/wq": (L, d, hq), "layers/attn/wk": (L, d, hkv),
+        "layers/attn/wv": (L, d, hkv), "layers/attn/wo": (L, hq, d),
+    })
+    if cfg.qkv_bias:
+        s.update({"layers/attn/bq": (L, hq), "layers/attn/bk": (L, hkv),
+                  "layers/attn/bv": (L, hkv)})
+    s.update({
+        "layers/ln2/scale": (L, d),
+        "layers/mlp/wg": (L, d, f), "layers/mlp/wu": (L, d, f),
+        "layers/mlp/wd": (L, f, d),
+        "ln_f/scale": (d,),
+    })
+    return s
+
+
+# ------------------------------------------------------------------ layers
+def layer_forward(p, cfg, h, positions):
+    h = h + attn.attn_forward(p["attn"], cfg, cm.rmsnorm(h, p["ln1"], cfg.norm_eps),
+                              positions)
+    return h + mlp_mod.mlp_forward(p["mlp"], cfg,
+                                   cm.rmsnorm(h, p["ln2"], cfg.norm_eps))
+
+
+def layer_prefill(p, cfg, h, positions):
+    a, kv = attn.attn_prefill(p["attn"], cfg, cm.rmsnorm(h, p["ln1"], cfg.norm_eps),
+                              positions)
+    h = h + a
+    return h + mlp_mod.mlp_forward(p["mlp"], cfg,
+                                   cm.rmsnorm(h, p["ln2"], cfg.norm_eps)), kv
+
+
+def layer_decode(p, cfg, h, ck, cv, lengths):
+    h = h + attn.attn_decode(p["attn"], cfg, cm.rmsnorm(h, p["ln1"], cfg.norm_eps),
+                             ck, cv, lengths)
+    return h + mlp_mod.mlp_forward(p["mlp"], cfg,
+                                   cm.rmsnorm(h, p["ln2"], cfg.norm_eps))
+
+
+def _layers(params, cfg) -> List[Dict]:
+    """Per-layer views of the stacked layer params."""
+    flat = cm.flatten(params["layers"])
+    return [cm.nest({k: v[i] for k, v in flat.items()})
+            for i in range(cfg.n_layers)]
+
+
+# ------------------------------------------------------------------- model
+def init(gen: torch.Generator, cfg, dtype: torch.dtype | None = None):
+    """Random params on ``gen``'s device: N(0, 1/fan_in) weights, zero
+    biases, unit norm scales (the JAX init's distributions)."""
+    dtype = dtype or cm.compute_dtype(cfg)
+    flat = {}
+    for key, shape in param_shapes(cfg).items():
+        name = key.rsplit("/", 1)[-1]
+        if name == "scale":
+            flat[key] = torch.ones(shape, dtype=dtype, device=gen.device)
+        elif name in ("bq", "bk", "bv"):
+            flat[key] = torch.zeros(shape, dtype=dtype, device=gen.device)
+        else:
+            fan_in = cfg.d_model if key == "emb/embed" else shape[-2]
+            flat[key] = cm.dense_init(gen, fan_in, shape, dtype)
+    return cm.nest(flat)
+
+
+def _embed(params, batch):
+    tokens = batch["tokens"]
+    positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+    return cm.embed_tokens(params["emb"], tokens), positions
+
+
+def forward(params, cfg, batch):
+    """Teacher-forced logits (B, S, Vp) and the aux loss (0 for dense)."""
+    h, positions = _embed(params, batch)
+    for lp in _layers(params, cfg):
+        h = layer_forward(lp, cfg, h, positions)
+    h = cm.rmsnorm(h, params["ln_f"], cfg.norm_eps)
+    return cm.unembed(params["emb"], cfg, h), 0.0
+
+
+# ------------------------------------------------------------------ serving
+def init_cache(cfg, batch_size: int, max_len: int, dtype=torch.bfloat16,
+               device=None):
+    """Zeroed cache: positions past a sequence's length must read as zeros."""
+    L, KH, hd = cfg.n_layers, cfg.n_kv_heads, cfg.resolved_head_dim
+    dev = resolve_device(device)
+    shape = (L, batch_size, max_len, KH, hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev),
+            "len": torch.zeros((batch_size,), dtype=torch.int32, device=dev)}
+
+
+def prefill(params, cfg, batch, last_pos=None):
+    """Run the prompt; returns (logits at the last prompt position (B, Vp),
+    cache). ``last_pos`` (B,) overrides the sampled position for
+    bucket-padded prompts (pads are never attended: the engine sets the
+    cache length)."""
+    h, positions = _embed(params, batch)
+    ks, vs = [], []
+    for lp in _layers(params, cfg):
+        h, (k, v) = layer_prefill(lp, cfg, h, positions)
+        ks.append(k)
+        vs.append(v)
+    B, S = h.shape[:2]
+    hl = h[:, -1] if last_pos is None else \
+        h[torch.arange(B, device=h.device), last_pos.long()]
+    logits = cm.unembed(params["emb"], cfg, cm.rmsnorm(hl, params["ln_f"], cfg.norm_eps))
+    cache = {"k": torch.stack(ks), "v": torch.stack(vs),
+             "len": torch.full((B,), S, dtype=torch.int32, device=h.device)}
+    return logits, cache
+
+
+def decode_step(params, cfg, cache, tokens):
+    """One token for every sequence. tokens (B,) -> (logits (B,Vp), cache).
+
+    The returned cache shares ``cache``'s K/V tensors, which this step
+    updates IN PLACE; only ``len`` is a new tensor (every slot + 1)."""
+    h = cm.embed_tokens(params["emb"], tokens)              # (B, d)
+    lengths = cache["len"]
+    for i, lp in enumerate(_layers(params, cfg)):
+        h = layer_decode(lp, cfg, h, cache["k"][i], cache["v"][i], lengths)
+    h = cm.rmsnorm(h, params["ln_f"], cfg.norm_eps)
+    logits = cm.unembed(params["emb"], cfg, h)
+    return logits, {"k": cache["k"], "v": cache["v"], "len": lengths + 1}
