@@ -7,20 +7,26 @@ Phases; any failure exits non-zero and no phase's failure is caught:
   1. device: the card's name and power limit; build every kernel from
      src/repro_torch/csrc (one nvcc per source, all at once).
   2. kernels: each CUDA kernel against its plain PyTorch version on the
-     card (fp32 2e-5, bf16 2e-2, the repo's kernel tolerances), then its
-     median time at the serving path's shapes beside the plain version's,
-     scaled_dot_product_attention's (timed here only; the port never calls
-     it) and the least time the card could take (the bound).
-  3. parity: qwen2-1.5b at full width, cut to 2 layers, fp32, one seeded
-     set of weights on the card and on the CPU: prefill logits and 4
-     decode steps agree within atol 2e-4 / rtol 2e-3.
-  4. serve: qwen2-1.5b at full width (28 layers, bf16, random weights)
-     behind repro_torch.launch.serve: every request finishes, every logit
-     is finite, and each kernel's launch count is 28 per prefill / decode
-     step. Then one profiler window over full-width decode steps: wall
-     time, device busy share, kernels by device time.
-The line before the last is a JSON object with every kernel's numbers;
-the last line is {"ok": true, "device": {...}}.
+     card, at both served models' shapes and ragged ones (attention fp32
+     2e-5, bf16 2e-2; grouped matmul fp32 1e-4, bf16 atol 1e-1 / rtol 5e-2:
+     the repo's kernel tolerances), then its median time at each served
+     model's shapes beside the plain version's, one PyTorch call's that
+     computes the same function (scaled_dot_product_attention, torch.bmm:
+     timed here only, the port never calls them) and the least time the
+     card could take (the bound).
+  3. parity: qwen2-1.5b and granite-moe-3b-a800m at full width, cut to 2
+     layers, fp32, one seeded set of weights on the card and on the CPU:
+     prefill logits and 4 decode steps agree within atol 2e-4 / rtol 2e-3.
+  4. serve: qwen2-1.5b (28 layers) and granite-moe-3b-a800m (32 layers) at
+     full width, bf16, random weights, behind repro_torch.launch.serve:
+     every request finishes, every logit is finite, and every prefill and
+     decode step launches each kernel of its path exactly as often as the
+     model has layers (grouped matmul: 3 per layer). Then one profiler
+     window over full-width decode steps of each model: wall time, device
+     busy share, device time by kernel family and by kernel.
+The line before the last is a JSON object with every kernel's numbers at
+granite-moe-3b-a800m's shapes, with its launches from granite's poisson5
+run; the last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -39,6 +45,10 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12      # dense bf16 tensor cores, H100 SXM data sheet
 TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
        torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+GMM_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),      # tests/test_kernels.py
+           torch.bfloat16: dict(atol=1e-1, rtol=5e-2)}
+SERVE_ARCHS = ("qwen2-1.5b", "granite-moe-3b-a800m")
+MAIN_ARCH = "granite-moe-3b-a800m"   # this slice's path: it runs every kernel
 SERVE_MAX_LEN = 256
 
 
@@ -75,15 +85,18 @@ def phase_device():
 
 # ---------------------------------------------------------------- phase 2
 def _time_ms(fn, flush, reps=30):
-    """Median device time of one call, each after an L2 flush (a 256 MB
-    memset). A spin kernel queued before the start event keeps the device
-    busy until the host has enqueued the whole call, so the events bracket
-    device work only, not the host's launch overhead."""
+    """Median device time of one call, each after an L2 flush: a 256 MB
+    memset, then a read of the same buffer, so that the call finds the L2
+    cold and clean (no dirty lines of the memset left to write back while it
+    runs). A spin kernel queued before the start event keeps the device busy
+    until the host has enqueued the whole call, so the events bracket device
+    work only, not the host's launch overhead."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         flush.zero_()
+        flush.sum()
         torch.cuda._sleep(2_000_000)          # about 1 ms of spinning
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
@@ -114,7 +127,6 @@ def _bound(nbytes, flops):
 
 
 def phase_kernels():
-    import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.decode_attention import ref as da_ref
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -124,7 +136,11 @@ def phase_kernels():
     flash_err = decode_err = 0.0
     n_flash = n_decode = 0
     for dtype in (torch.float32, torch.bfloat16):
+        # qwen2-1.5b's head layout (H=12, KH=2, D=128), granite-moe-3b-a800m's
+        # at its prefill buckets (H=24, KH=8, D=64: 3 query heads per KV
+        # head), and ragged and other layouts.
         cases = [(12, 2, 128, s, s, True) for s in (16, 64, 256, 100)]
+        cases += [(24, 8, 64, s, s, True) for s in (8, 16, 32, 64)]
         cases += [(12, 2, 128, 64, 100, False), (4, 2, 64, 48, 48, True),
                   (6, 6, 32, 80, 80, True)]
         for H, KH, D, Sq, Sk, causal in cases:
@@ -139,8 +155,9 @@ def phase_kernels():
                     f"flash {dtype} H={H} KH={KH} D={D} Sq={Sq} Sk={Sk} causal={causal} "
                     f"window={window}", out, want, **TOL[dtype]))
                 n_flash += 1
-        for B, H, KH, D, S in ((8, 12, 2, 128, 256), (8, 12, 2, 128, 1500),
-                               (3, 32, 2, 64, 200), (2, 6, 6, 32, 64)):
+        for B, H, KH, D, S in ((8, 12, 2, 128, 256), (8, 24, 8, 64, 256),
+                               (8, 12, 2, 128, 1500), (3, 32, 2, 64, 200),
+                               (2, 6, 6, 32, 64)):
             lens = torch.randint(1, S + 1, (B,), generator=gen, device="cuda",
                                  dtype=torch.int32)
             lens[0] = S + 5                      # an idle slot past the cache
@@ -158,13 +175,38 @@ def phase_kernels():
     print(f"[kernels] flash: {n_flash} cases match the plain version, max abs err {flash_err:.3e}")
     print(f"[kernels] decode: {n_decode} cases match the plain version, max abs err {decode_err:.3e}")
 
-    # Timing at the serving path's shapes: qwen2-1.5b, bf16. Prefill at the
-    # 64-token bucket (prompts are 8-63 tokens); decode over the 8-slot,
-    # 256-position cache with lengths in the path's range (prompt + up to
-    # 31 generated tokens).
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    rows = {arch: _attention_rows(arch, gen, flush) for arch in SERVE_ARCHS}
+    for arch, pair in rows.items():
+        for r in pair:
+            print(f"[kernels] {r['name']} at {arch}'s {r['shape']}: kernel {r['ms']:.4f} ms, "
+                  f"plain {r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms, "
+                  f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}); "
+                  f"host enqueue {r['host_us']:.1f} us/call")
+    # The kernels line reports the main path's shapes: granite's, the path
+    # that runs every kernel and whose launches are counted below.
+    flash, decode = rows[MAIN_ARCH]
+    flash["max_abs_err"], decode["max_abs_err"] = flash_err, decode_err
+    return [flash, decode, _gmm_kernel(gen, flush)]
+
+
+def _attention_rows(arch, gen, flush):
+    """Flash and decode attention timed at ``arch``'s serving shapes, bf16:
+    prefill at the 64-token bucket (prompts are 8-63 tokens); decode over
+    the 8-slot, 256-position cache with lengths in the path's range (prompt
+    + up to 31 generated tokens). Beside each kernel: its plain version,
+    scaled_dot_product_attention (timed here only) and the bound."""
+    import torch.nn.functional as F
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.decode_attention import ref as da_ref
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    cfg = get_config(arch)
+    H, KH, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     bf = torch.bfloat16
-    B, S, H, KH, D = 1, 64, 12, 2, 128
+    B, S = 1, 64
     q, k, v = (_randn(gen, B, S, n, D, dtype=bf) for n in (H, KH, KH))
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     pairs = S * (S + 1) // 2
@@ -174,7 +216,6 @@ def phase_kernels():
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:90",
-        "max_abs_err": flash_err,
         "ms": _time_ms(lambda: fa_ops.flash_attention(q, k, v), flush),
         "plain_ms": _time_ms(lambda: fa_ref.mha_reference(q, k, v), flush),
         "bound_ms": bound, "bound_by": by,
@@ -197,7 +238,6 @@ def phase_kernels():
         "name": "decode_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention/kernel.py:79",
-        "max_abs_err": decode_err,
         "ms": _time_ms(lambda: da_ops.decode_attention(q, kc, vc, lens), flush),
         "plain_ms": _time_ms(lambda: da_ref.decode_attention_reference(q, kc, vc, lens), flush),
         "bound_ms": bound, "bound_by": by,
@@ -206,35 +246,71 @@ def phase_kernels():
         "host_us": _host_us(lambda: da_ops.decode_attention(q, kc, vc, lens)),
         "shape": f"B={B} Smax={S} H={H} KH={KH} D={D} bf16 sum(len)={live}",
     }
-    for r in (flash, decode):
-        print(f"[kernels] {r['name']} at {r['shape']}: kernel {r['ms']:.4f} ms, "
-              f"plain {r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms, "
-              f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}); "
-              f"host enqueue {r['host_us']:.1f} us/call")
+    return flash, decode
 
-    # How the kernel times scale: decode with the cache length (32 keys a
-    # tile), flash with the prompt length, in both dtypes.
+
+def _gmm_kernel(gen, flush):
+    """The grouped matmul against its plain version over the repo's sweep
+    (ragged shapes included, and a w that is not 16-byte aligned) and the
+    serving shapes, then timed at granite's decode shape."""
+    from repro_torch.kernels.moe_gmm import ops as gmm_ops
+    from repro_torch.kernels.moe_gmm import ref as gmm_ref
+
+    serving = [(40, c, d, f) for c in (4, 8, 16) for d, f in ((1536, 512), (512, 1536))]
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        cases = [(2, 32, 16, 16, True), (4, 64, 96, 160, True), (8, 128, 128, 128, True),
+                 (3, 5, 96, 160, True), (2, 37, 64, 12, True), (2, 16, 8, 12, True),
+                 (4, 64, 96, 160, False)] + [c + (True,) for c in serving]
+        for E, C, d, f, aligned in cases:
+            x = _randn(gen, E, C, d, dtype=dtype)
+            w = _randn(gen, E * d * f + 1, dtype=dtype) * d ** -0.5
+            w = (w[:-1] if aligned else w[1:]).view(E, d, f)
+            out = gmm_ops.grouped_matmul(x, w)
+            want = gmm_ref.gmm_reference(x, w)
+            torch.cuda.synchronize()
+            errs[dtype] = max(errs.get(dtype, 0.0), _check(
+                f"gmm {dtype} E={E} C={C} d={d} f={f} aligned={aligned}",
+                out, want, **GMM_TOL[dtype]))
+        print(f"[kernels] grouped_matmul {str(dtype)[6:]}: {len(cases)} cases match the "
+              f"plain version, max abs err {errs[dtype]:.3e}")
+
+    # granite-moe-3b-a800m decode: 8 slots -> capacity 4 per expert; the
+    # gate/up products (d=1536 -> f=512) are two of each layer's three calls.
+    E, C, d, f = 40, 4, 1536, 512
+    x, w = _randn(gen, E, C, d, dtype=torch.bfloat16), _randn(gen, E, d, f, dtype=torch.bfloat16)
+    bound, by = _bound(2 * (x.numel() + w.numel() + E * C * f), 2 * E * C * d * f)
+    gmm = {"name": "grouped_matmul", "route": "cuda",
+           "source": "src/repro_torch/csrc/moe_gmm.cu",
+           "replaces": "src/repro/kernels/moe_gmm/kernel.py:49",
+           "max_abs_err": max(errs.values()),
+           "ms": _time_ms(lambda: gmm_ops.grouped_matmul(x, w), flush),
+           "plain_ms": _time_ms(lambda: gmm_ref.gmm_reference(x, w), flush),
+           "bound_ms": bound, "bound_by": by,
+           "library_ms": _time_ms(lambda: torch.bmm(x, w), flush),
+           "host_us": _host_us(lambda: gmm_ops.grouped_matmul(x, w)),
+           "shape": f"E={E} C={C} d={d} f={f} bf16"}
+    print(f"[kernels] grouped_matmul at {MAIN_ARCH}'s {gmm['shape']}: kernel "
+          f"{gmm['ms']:.4f} ms, plain {gmm['plain_ms']:.4f} ms, bmm {gmm['library_ms']:.4f} ms, "
+          f"bound {gmm['bound_ms']:.6f} ms ({gmm['bound_by']}); "
+          f"host enqueue {gmm['host_us']:.1f} us/call")
+    # The kernel alone at the path's other shapes: the down product and the
+    # prefill buckets' capacities.
     sweep = []
-    for L in (0, 32, 64, 128, 256):
-        lens = torch.full((8,), L, dtype=torch.int32, device="cuda")
-        sweep.append(f"len={L}:{1e3 * _time_ms(lambda: da_ops.decode_attention(q, kc, vc, lens), flush):.1f}")
-    print(f"[kernels] decode bf16 B=8 Smax=256 us by length: {' '.join(sweep)}")
-    for dtype in (torch.bfloat16, torch.float32):
-        sweep = []
-        for S in (16, 64, 256):
-            x, y = _randn(gen, 1, S, H, D, dtype=dtype), _randn(gen, 1, S, KH, D, dtype=dtype)
-            sweep.append(f"S={S}:{1e3 * _time_ms(lambda: fa_ops.flash_attention(x, y, y), flush):.1f}")
-        print(f"[kernels] flash {str(dtype)[6:]} causal us by length: {' '.join(sweep)}")
-    return [flash, decode]
+    for E, C, d, f in serving:
+        x, w = _randn(gen, E, C, d, dtype=torch.bfloat16), _randn(gen, E, d, f, dtype=torch.bfloat16)
+        sweep.append(f"C={C},d={d},f={f}:{1e3 * _time_ms(lambda: gmm_ops.grouped_matmul(x, w), flush):.1f}")
+    print(f"[kernels] grouped_matmul bf16 E=40 us by shape: {' '.join(sweep)}")
+    return gmm
 
 
 # ---------------------------------------------------------------- phase 3
-def phase_parity():
+def phase_parity(arch):
     from repro_torch.configs.registry import get_config
     from repro_torch.models import common as cm
     from repro_torch.models.api import get_model
 
-    cfg = get_config("qwen2-1.5b").with_(n_layers=2, dtype="float32")
+    cfg = get_config(arch).with_(n_layers=2, dtype="float32")
     model = get_model(cfg)
     p_cpu = model.init(torch.Generator().manual_seed(0), cfg)
     p_gpu = cm.nest({k: v.cuda() for k, v in cm.flatten(p_cpu).items()})
@@ -253,77 +329,105 @@ def phase_parity():
         for t in steps:
             lg, caches[dev] = model.decode_step(p, cfg, caches[dev], t.to(dev))
             logits[dev].append(lg)
-    err = max(_check(f"parity {'prefill' if i == 0 else f'decode {i}'}",
+    err = max(_check(f"parity {arch} {'prefill' if i == 0 else f'decode {i}'}",
                      g.cpu(), c, **tol)
               for i, (c, g) in enumerate(zip(logits["cpu"], logits["cuda"])))
-    print(f"[parity] qwen2-1.5b full width, 2 layers, fp32: prefill + 4 decode "
+    print(f"[parity] {arch} full width, 2 layers, fp32: prefill + 4 decode "
           f"steps on the card match the CPU, max abs err {err:.3e} "
           f"(atol {tol['atol']}, rtol {tol['rtol']})")
 
 
 # ---------------------------------------------------------------- phase 4
-def phase_serve():
-    from repro_torch.configs.registry import get_config
+def _kernel_ops():
+    """Each kernel's wrapper by name; a wrapper's ``launches`` counts the
+    launches of its kernel and nothing else."""
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.moe_gmm import ops as gmm_ops
+    return {"flash_attention": fa_ops.flash_attention,
+            "decode_attention": da_ops.decode_attention,
+            "grouped_matmul": gmm_ops.grouped_matmul}
+
+
+def _per_call_launches(cfg):
+    """The launches each prefill and each decode step must make: one
+    attention kernel per layer, and for MoE three grouped matmuls per layer
+    (gate, up, down)."""
+    L = cfg.n_layers
+    gmm = 3 * L if cfg.family == "moe" else 0
+    return {"prefill": {"flash_attention": L, "decode_attention": 0, "grouped_matmul": gmm},
+            "decode": {"flash_attention": 0, "decode_attention": L, "grouped_matmul": gmm}}
+
+
+def phase_serve(arch):
+    """Serve ``arch`` at full width through repro_torch.launch.serve, with
+    Poisson arrivals at 5/s and with all requests at once. Every prefill and
+    decode step is checked for its launches and finite logits."""
+    from repro_torch.configs.registry import get_config
     from repro_torch.launch.serve import serve
     from repro_torch.models import transformer
 
-    cfg = get_config("qwen2-1.5b")
+    cfg = get_config(arch)
+    ops = _kernel_ops()
+    want_per_call = _per_call_launches(cfg)
     calls = {"prefill": 0, "decode": 0}
     finite = torch.ones((), dtype=torch.bool, device="cuda")
-    real_prefill, real_decode = transformer.prefill, transformer.decode_step
+    real = {"prefill": transformer.prefill, "decode": transformer.decode_step}
 
-    def prefill(*a, **kw):
-        logits, cache = real_prefill(*a, **kw)
-        calls["prefill"] += 1
-        finite.logical_and_(torch.isfinite(logits).all())
-        return logits, cache
+    def counted(kind):
+        def call(*a, **kw):
+            before = {n: op.launches for n, op in ops.items()}
+            logits, cache = real[kind](*a, **kw)
+            made = {n: op.launches - before[n] for n, op in ops.items()}
+            assert made == want_per_call[kind], \
+                f"{arch} {kind}: launches {made}, want {want_per_call[kind]}"
+            calls[kind] += 1
+            finite.logical_and_(torch.isfinite(logits).all())
+            return logits, cache
+        return call
 
-    def decode_step(*a, **kw):
-        logits, cache = real_decode(*a, **kw)
-        calls["decode"] += 1
-        finite.logical_and_(torch.isfinite(logits).all())
-        return logits, cache
-
-    transformer.prefill, transformer.decode_step = prefill, decode_step
+    transformer.prefill, transformer.decode_step = counted("prefill"), counted("decode")
     try:
         # warm-up: first-call costs (cuBLAS handles, allocator) out of the numbers
         serve(cfg, n_requests=2, rate=1e3, max_len=SERVE_MAX_LEN, seed=1, device="cuda")
         runs = {}
         for label, rate in (("poisson5", 5.0), ("burst", 1e6)):
             calls.update(prefill=0, decode=0)
-            fa_ops.flash_attention.launches = 0
-            da_ops.decode_attention.launches = 0
+            for op in ops.values():
+                op.launches = 0
             finished, summary = serve(cfg, n_requests=16, rate=rate, max_batch=8,
                                       max_len=SERVE_MAX_LEN, seed=0, device="cuda")
-            launches = {"flash_attention": fa_ops.flash_attention.launches,
-                        "decode_attention": da_ops.decode_attention.launches}
+            launches = {n: op.launches for n, op in ops.items()}
             assert len(finished) == 16, f"{label}: {len(finished)} of 16 requests finished"
-            assert bool(finite), f"{label}: non-finite logits"
-            want = {"flash_attention": cfg.n_layers * calls["prefill"],
-                    "decode_attention": cfg.n_layers * calls["decode"]}
+            assert bool(finite), f"{arch} {label}: non-finite logits"
             assert calls["prefill"] == 16 and calls["decode"] > 0, calls
-            assert launches == want, f"{label}: launches {launches}, want {want}"
-            print(f"[serve] {label}: rate {rate}/s, {calls['prefill']} prefills, "
+            want = {n: sum(want_per_call[k][n] * calls[k] for k in calls) for n in ops}
+            assert launches == want, f"{arch} {label}: launches {launches}, want {want}"
+            print(f"[serve] {arch} {label}: rate {rate}/s, {calls['prefill']} prefills, "
                   f"{calls['decode']} decode steps, kernels {json.dumps(launches)}")
-            print(f"[serve] {label}: {json.dumps(summary)}")
+            print(f"[serve] {arch} {label}: {json.dumps(summary)}")
             runs[label] = (launches, summary)
     finally:
-        transformer.prefill, transformer.decode_step = real_prefill, real_decode
+        transformer.prefill, transformer.decode_step = real["prefill"], real["decode"]
+    torch.cuda.empty_cache()
     return runs
 
 
-def phase_profile(steps=4):
+KERNEL_FAMILIES = {"grouped matmul": ("gmm_kernel",),
+                   "attention": ("flash_fwd_kernel", "decode_kernel")}
+
+
+def phase_profile(arch, steps=4):
     """Where a full-width decode step's time goes: one torch.profiler window
     over `steps` engine steps with all 8 slots busy. Prints the wall time
-    per step, the device's busy share and the kernels by device time."""
+    per step, the device's busy share, its split into the port's kernel
+    families and the rest, and the kernels by device time."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs.registry import get_config
     from repro_torch.models.api import get_model
     from repro_torch.serving.engine import TorchEngine
 
-    cfg = get_config("qwen2-1.5b")
+    cfg = get_config(arch)
     params = get_model(cfg).init(torch.Generator(device="cuda").manual_seed(0), cfg)
     eng = TorchEngine(cfg, params, max_batch=8, max_len=SERVE_MAX_LEN)
     rng = np.random.default_rng(0)
@@ -343,11 +447,19 @@ def phase_profile(steps=4):
     dev = {e.key: e.self_device_time_total / 1e3 / steps for e in kernels}   # ms per step
     busy = sum(dev.values())
     n_launch = sum(e.count for e in kernels) / steps
-    print(f"[profile] decode step, 8 slots busy, qwen2-1.5b bf16: wall {wall_ms:.2f} ms, "
+    print(f"[profile] decode step, 8 slots busy, {arch} bf16: wall {wall_ms:.2f} ms, "
           f"device busy {busy:.2f} ms ({100 * busy / wall_ms:.1f}%), "
           f"{n_launch:.0f} device ops per step")
+    assert busy > 0, f"{arch}: the profiler saw no device time"
+    split = {fam: sum(ms for name, ms in dev.items() if any(k in name for k in keys))
+             for fam, keys in KERNEL_FAMILIES.items()}
+    split["rest"] = busy - sum(split.values())
+    print(f"[profile] {arch} device busy split (ms/step): " + ", ".join(
+        f"{fam} {ms:.3f} ({100 * ms / busy:.1f}%)" for fam, ms in split.items()))
     for name, ms in sorted(dev.items(), key=lambda kv: -kv[1])[:10]:
         print(f"[profile]   {ms:8.3f} ms/step  {name[:110]}")
+    del eng, params
+    torch.cuda.empty_cache()
     return wall_ms, busy
 
 
@@ -363,12 +475,17 @@ def main():
     t0 = time.time()
     phase_device()
     kernels = phase_kernels()
-    phase_parity()
-    runs = phase_serve()
-    phase_profile()
-    launches = runs["poisson5"][0]
+    for arch in SERVE_ARCHS:
+        phase_parity(arch)
+    runs = {arch: phase_serve(arch) for arch in SERVE_ARCHS}
+    for arch in SERVE_ARCHS:
+        phase_profile(arch)
+    # launches on this slice's main path (granite, which runs every kernel),
+    # in its poisson5 run; each path's own counts were checked in phase 4
+    launches = runs[MAIN_ARCH]["poisson5"][0]
     for r in kernels:
         r["launches"] = launches[r["name"]]
+        assert r["launches"] > 0, f"{r['name']} was never launched on the main path"
     print(f"[done] all phases passed in {time.time() - t0:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

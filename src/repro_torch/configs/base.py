@@ -1,7 +1,7 @@
-"""Model configuration for the dense decoders the port serves.
+"""Model configuration for the decoders the port serves (dense and MoE).
 
 An own copy of ``ModelConfig``, cut to the fields and properties the
-dense path reads. ``weight_sharding`` and ``kv_seq_shard`` are kept so
+dense and MoE paths read. ``weight_sharding`` and ``kv_seq_shard`` are kept so
 that the per-arch ``config()`` functions stay verbatim copies; nothing
 in the port reads them until it has a mesh.
 """
@@ -13,7 +13,7 @@ from dataclasses import dataclass, replace
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # dense (the only family ported so far)
+    family: str                      # dense | moe (the families ported so far)
     n_layers: int
     d_model: int
     n_heads: int
@@ -28,6 +28,15 @@ class ModelConfig:
     sliding_window: int = 0          # 0 -> full attention
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
+
+    # --- MoE ---
+    n_experts: int = 0
+    top_k: int = 0
+    moe_capacity_factor: float = 1.25
+    # "onehot": GShard-style dispatch via one-hot einsums (reference;
+    #   O(T·E·cap) memory). "sorted": argsort/scatter dispatch, linear in
+    #   tokens.
+    moe_impl: str = "onehot"
 
     dtype: str = "bfloat16"          # weight and activation dtype
     weight_sharding: str = "tp"      # sharding hint, unused without a mesh

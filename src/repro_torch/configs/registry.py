@@ -1,5 +1,5 @@
-"""--arch <id> registry. The ids are those of ``repro``; the dense ones are
-ported, the others raise until their slice lands."""
+"""--arch <id> registry. The ids are those of ``repro``; the dense and MoE
+ones are ported, the others raise until their slice lands."""
 from __future__ import annotations
 
 import importlib
@@ -12,10 +12,11 @@ _ARCH_MODULES: Dict[str, str] = {
     "glm4-9b": "repro_torch.configs.glm4_9b",
     "mistral-nemo-12b": "repro_torch.configs.mistral_nemo_12b",
     "qwen2-1.5b": "repro_torch.configs.qwen2_1p5b",
+    "granite-moe-3b-a800m": "repro_torch.configs.granite_moe_3b_a800m",
+    "dbrx-132b": "repro_torch.configs.dbrx_132b",
 }
 
-_NOT_PORTED = ("zamba2-1.2b", "xlstm-350m", "whisper-base",
-               "granite-moe-3b-a800m", "dbrx-132b", "qwen2-vl-2b")
+_NOT_PORTED = ("zamba2-1.2b", "xlstm-350m", "whisper-base", "qwen2-vl-2b")
 
 ARCH_IDS: List[str] = list(_ARCH_MODULES)
 

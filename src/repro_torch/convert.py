@@ -20,9 +20,11 @@ from repro_torch.models.api import get_model
 def params_from_numpy(flat: Dict[str, np.ndarray], cfg, device,
                       dtype: torch.dtype | None = None):
     """Flat numpy params -> the port's nested tensor params on ``device``
-    (in ``dtype``, default the config's). Raises on a missing, extra or
-    misshapen key."""
-    want = get_model(cfg).param_shapes(cfg)
+    (in ``dtype``, default the config's; keys the model keeps in fp32, such
+    as the MoE router, stay fp32). Raises on a missing, extra or misshapen
+    key."""
+    model = get_model(cfg)
+    want = model.param_shapes(cfg)
     if set(flat) != set(want):
         raise KeyError(f"param keys differ: missing {sorted(set(want) - set(flat))}, "
                        f"unexpected {sorted(set(flat) - set(want))}")
@@ -33,7 +35,8 @@ def params_from_numpy(flat: Dict[str, np.ndarray], cfg, device,
         if a.shape != shape:
             raise ValueError(f"{key}: shape {a.shape}, expected {shape}")
         # bf16 has no numpy dtype of its own here: go through fp32
-        out[key] = torch.from_numpy(a.astype(np.float32)).to(device=device, dtype=dtype)
+        out[key] = torch.from_numpy(a.astype(np.float32)).to(
+            device=device, dtype=model.param_dtype(key, dtype))
     return cm.nest(out)
 
 

@@ -1,5 +1,4 @@
-// Helpers shared by the attention kernels: type conversion and warp
-// reductions. Plain C interface users only: no PyTorch headers.
+// Helpers shared by the kernels: type conversion and warp reductions. Plain C interface users only: no PyTorch headers.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -12,6 +11,12 @@ namespace repro {
 constexpr float kNegInf = -1e30f;
 
 enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
+
+template <typename T> __device__ __forceinline__ float to_float(T x);
+template <> __device__ __forceinline__ float to_float<float>(float x) { return x; }
+template <> __device__ __forceinline__ float to_float<__nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
 
 template <typename T> __device__ __forceinline__ T from_float(float x);
 template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }

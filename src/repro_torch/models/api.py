@@ -6,7 +6,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer
 
 
+_FAMILY = {"dense": transformer, "moe": transformer}
+
+
 def get_model(cfg: ModelConfig):
-    if cfg.family != "dense":
+    if cfg.family not in _FAMILY:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
-    return transformer
+    return _FAMILY[cfg.family]

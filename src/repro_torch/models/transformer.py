@@ -1,4 +1,4 @@
-"""Decoder-only transformer LM, dense family.
+"""Decoder-only transformer LM, dense and MoE families.
 
 Layers are stacked along a leading axis, as in the JAX package, and run
 in a Python loop over per-layer views. Decode updates the KV cache in
@@ -33,36 +33,58 @@ def param_shapes(cfg) -> Dict[str, Tuple[int, ...]]:
     if cfg.qkv_bias:
         s.update({"layers/attn/bq": (L, hq), "layers/attn/bk": (L, hkv),
                   "layers/attn/bv": (L, hkv)})
-    s.update({
-        "layers/ln2/scale": (L, d),
-        "layers/mlp/wg": (L, d, f), "layers/mlp/wu": (L, d, f),
-        "layers/mlp/wd": (L, f, d),
-        "ln_f/scale": (d,),
-    })
+    s["layers/ln2/scale"] = (L, d)
+    if cfg.family == "moe":
+        E = cfg.n_experts
+        s.update({"layers/moe/router": (L, d, E),
+                  "layers/moe/wg": (L, E, d, f), "layers/moe/wu": (L, E, d, f),
+                  "layers/moe/wd": (L, E, f, d)})
+    else:
+        s.update({"layers/mlp/wg": (L, d, f), "layers/mlp/wu": (L, d, f),
+                  "layers/mlp/wd": (L, f, d)})
+    s["ln_f/scale"] = (d,)
     return s
 
 
+FP32_KEYS = ("layers/moe/router",)   # fp32 in every model, as in the JAX init
+
+
+def param_dtype(key: str, dtype: torch.dtype) -> torch.dtype:
+    """The dtype param ``key`` takes in a model of weight dtype ``dtype``."""
+    return torch.float32 if key in FP32_KEYS else dtype
+
+
 # ------------------------------------------------------------------ layers
+def _ffn(p, cfg, x):
+    """The block's feed-forward half on x (B, S, d): (y, aux loss)."""
+    if cfg.family == "moe":
+        return mlp_mod.moe_forward(p["moe"], cfg, x)
+    return mlp_mod.mlp_forward(p["mlp"], cfg, x), 0.0
+
+
 def layer_forward(p, cfg, h, positions):
     h = h + attn.attn_forward(p["attn"], cfg, cm.rmsnorm(h, p["ln1"], cfg.norm_eps),
                               positions)
-    return h + mlp_mod.mlp_forward(p["mlp"], cfg,
-                                   cm.rmsnorm(h, p["ln2"], cfg.norm_eps))
+    y, aux = _ffn(p, cfg, cm.rmsnorm(h, p["ln2"], cfg.norm_eps))
+    return h + y, aux
 
 
 def layer_prefill(p, cfg, h, positions):
     a, kv = attn.attn_prefill(p["attn"], cfg, cm.rmsnorm(h, p["ln1"], cfg.norm_eps),
                               positions)
     h = h + a
-    return h + mlp_mod.mlp_forward(p["mlp"], cfg,
-                                   cm.rmsnorm(h, p["ln2"], cfg.norm_eps)), kv
+    y, _ = _ffn(p, cfg, cm.rmsnorm(h, p["ln2"], cfg.norm_eps))
+    return h + y, kv
 
 
 def layer_decode(p, cfg, h, ck, cv, lengths):
     h = h + attn.attn_decode(p["attn"], cfg, cm.rmsnorm(h, p["ln1"], cfg.norm_eps),
                              ck, cv, lengths)
-    return h + mlp_mod.mlp_forward(p["mlp"], cfg,
-                                   cm.rmsnorm(h, p["ln2"], cfg.norm_eps))
+    x = cm.rmsnorm(h, p["ln2"], cfg.norm_eps)
+    if cfg.family == "moe":               # every slot is one token of the batch
+        y, _ = mlp_mod.moe_forward(p["moe"], cfg, x[:, None, :])
+        return h + y[:, 0, :]
+    return h + mlp_mod.mlp_forward(p["mlp"], cfg, x)
 
 
 def _layers(params, cfg) -> List[Dict]:
@@ -75,18 +97,20 @@ def _layers(params, cfg) -> List[Dict]:
 # ------------------------------------------------------------------- model
 def init(gen: torch.Generator, cfg, dtype: torch.dtype | None = None):
     """Random params on ``gen``'s device: N(0, 1/fan_in) weights, zero
-    biases, unit norm scales (the JAX init's distributions)."""
+    biases, unit norm scales (the JAX init's distributions), each key in
+    ``param_dtype``."""
     dtype = dtype or cm.compute_dtype(cfg)
     flat = {}
     for key, shape in param_shapes(cfg).items():
+        kdt = param_dtype(key, dtype)
         name = key.rsplit("/", 1)[-1]
         if name == "scale":
-            flat[key] = torch.ones(shape, dtype=dtype, device=gen.device)
+            flat[key] = torch.ones(shape, dtype=kdt, device=gen.device)
         elif name in ("bq", "bk", "bv"):
-            flat[key] = torch.zeros(shape, dtype=dtype, device=gen.device)
+            flat[key] = torch.zeros(shape, dtype=kdt, device=gen.device)
         else:
             fan_in = cfg.d_model if key == "emb/embed" else shape[-2]
-            flat[key] = cm.dense_init(gen, fan_in, shape, dtype)
+            flat[key] = cm.dense_init(gen, fan_in, shape, kdt)
     return cm.nest(flat)
 
 
@@ -97,12 +121,15 @@ def _embed(params, batch):
 
 
 def forward(params, cfg, batch):
-    """Teacher-forced logits (B, S, Vp) and the aux loss (0 for dense)."""
+    """Teacher-forced logits (B, S, Vp) and the aux loss summed over layers
+    (0.0 for dense)."""
     h, positions = _embed(params, batch)
+    aux = 0.0
     for lp in _layers(params, cfg):
-        h = layer_forward(lp, cfg, h, positions)
+        h, a = layer_forward(lp, cfg, h, positions)
+        aux = aux + a
     h = cm.rmsnorm(h, params["ln_f"], cfg.norm_eps)
-    return cm.unembed(params["emb"], cfg, h), 0.0
+    return cm.unembed(params["emb"], cfg, h), aux
 
 
 # ------------------------------------------------------------------ serving

@@ -33,9 +33,37 @@ def _both(a, dtype):
     return ja, torch.from_numpy(np.array(ja, np.float32)).to(_DT[dtype][1])
 
 
-def _close(out, want, dtype):
-    np.testing.assert_allclose(out.float().numpy(), np.asarray(want, np.float32),
-                               **_tol(dtype))
+def _close(out, want, dtype, what="", exact=None):
+    """Port output against the JAX output. Given ``exact`` (a float64
+    computation on the same inputs), each side is also held against it,
+    and a failure says which side moved."""
+    got, ref = out.float().numpy(), np.asarray(want, np.float32)
+    note = what
+    if exact is not None:
+        e_port, e_jax = (float(np.abs(a - exact).max()) for a in (got, ref))
+        note = f"{what}: port vs float64 {e_port:.2e}, jax vs float64 {e_jax:.2e}"
+        np.testing.assert_allclose(got, exact, **_tol(dtype), err_msg=f"port moved; {note}")
+        np.testing.assert_allclose(ref, exact, **_tol(dtype), err_msg=f"jax moved; {note}")
+    np.testing.assert_allclose(got, ref, **_tol(dtype), err_msg=note)
+
+
+def _attention_f64(q, k, v, causal, window):
+    """Float64 numpy attention (suffix-aligned causal mask, optional window)
+    on the exact values both sides were given."""
+    q, k, v = (t.double().numpy() for t in (q, k, v))
+    Sq, H, D = q.shape[1:]
+    Sk, KH = k.shape[1:3]
+    k, v = (np.repeat(t, H // KH, axis=2) for t in (k, v))
+    logits = np.einsum("bqhd,bkhd->bhqk", q * D ** -0.5, k)
+    qp, kp = np.arange(Sq)[:, None] + (Sk - Sq), np.arange(Sk)[None, :]
+    mask = np.ones((Sq, Sk), bool)
+    if causal:
+        mask &= kp <= qp
+    if window:
+        mask &= kp > qp - window
+    logits = np.where(mask, logits, -np.inf)
+    p = np.exp(logits - logits.max(-1, keepdims=True))
+    return np.einsum("bhqk,bkhd->bqhd", p / p.sum(-1, keepdims=True), v)
 
 
 # ------------------------------------------------------------------ flash
@@ -51,10 +79,11 @@ def test_flash_matches_pallas_interpret(B, S, H, KH, D, causal, window, dtype):
     jk, k = _both(rng.normal(size=(B, S, KH, D)), dtype)
     jv, v = _both(rng.normal(size=(B, S, KH, D)), dtype)
     out = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
+    exact = _attention_f64(q, k, v, causal, window) if dtype == "float32" else None
     for impl in ("pallas_interpret", "ref"):
         want = jfa_ops.flash_attention(jq, jk, jv, causal=causal, window=window,
                                        impl=impl)
-        _close(out, want, dtype)
+        _close(out, want, dtype, impl, exact)
 
 
 @pytest.mark.parametrize("Sq,Sk,causal,window", [
@@ -149,7 +178,7 @@ def test_build_command_targets_sm90a(monkeypatch):
     cmd = build.nvcc_command("flash_attention", build.library_path("flash_attention"))
     assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" in cmd
     assert cmd[-1].endswith("csrc/flash_attention.cu")
-    assert set(build.sources()) == {"flash_attention", "decode_attention"}
+    assert set(build.sources()) == {"flash_attention", "decode_attention", "moe_gmm"}
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):

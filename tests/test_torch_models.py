@@ -1,7 +1,8 @@
-"""The port's dense models against the JAX package on the CPU: the same
-params (JAX init, carried over through the checkpoint key layout) and the
-same tokens give the same logits. fp32 smoke configs; atol 2e-4 / rtol
-2e-3, the repo's own model bound (tests/test_models.py)."""
+"""The port's dense and MoE models against the JAX package on the CPU: the
+same params (JAX init, carried over through the checkpoint key layout) and
+the same tokens give the same logits (and, for MoE, the same aux loss).
+fp32 smoke configs; atol 2e-4 / rtol 2e-3, the repo's own model bound
+(tests/test_models.py)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -15,7 +16,8 @@ from repro_torch.configs.registry import get_smoke_config
 from repro_torch.convert import params_from_numpy, params_to_numpy
 from repro_torch.models import api as mapi
 
-ARCHS = ["qwen2-1.5b", "glm4-9b", "minicpm-2b", "mistral-nemo-12b"]
+ARCHS = ["qwen2-1.5b", "glm4-9b", "minicpm-2b", "mistral-nemo-12b",
+         "granite-moe-3b-a800m", "dbrx-132b"]
 TOL = dict(atol=2e-4, rtol=2e-3)
 
 
@@ -42,7 +44,8 @@ def test_config_copies_match_the_reference(arch):
         for f in ("name", "family", "n_layers", "d_model", "n_heads",
                   "n_kv_heads", "d_ff", "vocab_size", "resolved_head_dim",
                   "qkv_bias", "rope", "rope_theta", "sliding_window",
-                  "norm_eps", "tie_embeddings", "dtype"):
+                  "norm_eps", "tie_embeddings", "dtype", "n_experts", "top_k",
+                  "moe_capacity_factor", "moe_impl"):
             assert getattr(ours, f) == getattr(theirs, f), (arch, f)
 
 
@@ -50,9 +53,11 @@ def test_config_copies_match_the_reference(arch):
 def test_forward_matches_jax(arch):
     jcfg, jmodel, jparams, cfg, model, params = _setup(arch)
     toks = _tokens(cfg, 2, 16)
-    want, _ = jmodel.forward(jparams, jcfg, {"tokens": jnp.asarray(toks)})
+    want, jaux = jmodel.forward(jparams, jcfg, {"tokens": jnp.asarray(toks)})
     got, aux = model.forward(params, cfg, {"tokens": torch.from_numpy(toks)})
-    assert aux == 0.0
+    if cfg.family == "dense":
+        assert aux == 0.0
+    np.testing.assert_allclose(float(aux), float(jaux), **TOL)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
@@ -86,8 +91,10 @@ def test_prefill_and_decode_match_jax(arch):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_decode_matches_forward(arch):
     """decode_step(prefill(prompt)) agrees with teacher forcing, on the
-    port alone with its own random init."""
-    cfg = get_smoke_config(arch)
+    port alone with its own random init (MoE without capacity drops: the
+    one-hot queue spans every token of a call, so a drop in the 26-token
+    forward need not happen in the 2-token decode)."""
+    cfg = get_smoke_config(arch).with_(moe_capacity_factor=100.0)
     model = mapi.get_model(cfg)
     params = model.init(torch.Generator().manual_seed(0), cfg)
     toks = torch.from_numpy(_tokens(cfg, 2, 12))
@@ -123,14 +130,30 @@ def test_params_from_numpy_rejects_wrong_keys_and_shapes():
                           cfg, "cpu")
 
 
+def test_params_from_numpy_keeps_the_router_fp32():
+    """The MoE router is fp32 in a bf16 model (the JAX init makes it so,
+    and routing is computed in fp32); every other weight takes the model's
+    dtype, in the port's init too."""
+    cfg = get_smoke_config("granite-moe-3b-a800m").with_(dtype="bfloat16")
+    model = mapi.get_model(cfg)
+    for params in (params_from_numpy(params_to_numpy(model.init(
+                       torch.Generator().manual_seed(0), cfg)), cfg, "cpu"),
+                   model.init(torch.Generator().manual_seed(0), cfg)):
+        moe = params["layers"]["moe"]
+        assert moe["router"].dtype == torch.float32
+        assert {moe[k].dtype for k in ("wg", "wu", "wd")} == {torch.bfloat16}
+        assert params["emb"]["embed"].dtype == torch.bfloat16
+
+
 def test_unported_families_and_devices_raise(monkeypatch):
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels.common import resolve_device
-    for arch in ("zamba2-1.2b", "dbrx-132b", "whisper-base", "qwen2-vl-2b"):
+    for arch in ("zamba2-1.2b", "whisper-base", "qwen2-vl-2b", "xlstm-350m"):
         with pytest.raises(NotImplementedError):
             get_config(arch)
-    with pytest.raises(NotImplementedError):
-        mapi.get_model(get_smoke_config("qwen2-1.5b").with_(family="moe"))
+    for family in ("hybrid", "audio", "vlm", "ssm"):
+        with pytest.raises(NotImplementedError):
+            mapi.get_model(get_smoke_config("qwen2-1.5b").with_(family=family))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device(None)

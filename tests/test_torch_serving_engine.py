@@ -122,3 +122,55 @@ def test_idle_slot_length_past_max_len(shared):
         outs.append([r.out_tokens for r in reqs])
     assert [len(t) for t in outs[1]] == [2, 29, 4]
     assert outs[1] == outs[0]
+
+
+def test_moe_engine_tokens_equal_jax_engine():
+    """granite smoke at its default capacity factor, more requests than
+    slots: idle slots (token 0) route and take expert capacity in decode,
+    bucket pads do in prefill, and the port must drop the same assignments
+    as JAX to give the same tokens."""
+    jcfg = jax_smoke_config("granite-moe-3b-a800m")
+    jparams, _ = jax_api.get_model(jcfg).init(jax.random.PRNGKey(1), jcfg)
+    cfg = get_smoke_config("granite-moe-3b-a800m")
+    params = params_from_numpy(_flatten(jparams), cfg, "cpu")
+    rng = np.random.default_rng(4)
+    reqs = [(rng.integers(0, cfg.vocab_size, size=(int(n),)), int(m))
+            for n, m in ((5, 7), (17, 4), (9, 12), (30, 5), (3, 6), (12, 3),
+                         (7, 9), (20, 2), (4, 5))]
+    outs = []
+    for eng in (JaxEngine(jcfg, jparams, max_batch=6, max_len=64),
+                TorchEngine(cfg, params, max_batch=6, max_len=64)):
+        for i, (p, m) in enumerate(reqs):
+            eng.submit(i, p, m)
+        outs.append({rid: r.out_tokens for rid, r in eng.drain().items()})
+    assert len(outs[1]) == len(reqs)
+    assert outs[1] == outs[0]
+
+
+def test_moe_idle_slot_length_past_max_len():
+    """The idle-slot case above on granite smoke, widened to granite's
+    head dim 64 and group G = 3: a slot whose length runs past max_len
+    neither writes nor reads past the cache, and its MoE routing (token 0)
+    keeps taking expert capacity exactly as in JaxEngine."""
+    shape = dict(d_model=96, n_heads=6, n_kv_heads=2, head_dim=64)
+    jcfg = jax_smoke_config("granite-moe-3b-a800m").with_(**shape)
+    jparams, _ = jax_api.get_model(jcfg).init(jax.random.PRNGKey(2), jcfg)
+    cfg = get_smoke_config("granite-moe-3b-a800m").with_(**shape)
+    params = params_from_numpy(_flatten(jparams), cfg, "cpu")
+    rng = np.random.default_rng(5)
+    short, long_, late = (rng.integers(0, cfg.vocab_size, size=(n,)) for n in (16, 3, 7))
+    outs = []
+    for eng in (JaxEngine(jcfg, jparams, max_batch=2, max_len=32),
+                TorchEngine(cfg, params, max_batch=2, max_len=32)):
+        eng.submit(0, short, 1)
+        eng.submit(1, long_, 28)
+        reqs = list(eng.queue)
+        for _ in range(24):
+            eng.step()
+        assert int(np.asarray(eng.cache["len"])[0]) > 32
+        eng.submit(2, late, 3)
+        reqs.append(eng.queue[-1])
+        eng.drain()
+        outs.append([r.out_tokens for r in reqs])
+    assert [len(t) for t in outs[1]] == [2, 29, 4]
+    assert outs[1] == outs[0]
