@@ -7,26 +7,36 @@ Phases; any failure exits non-zero and no phase's failure is caught:
   1. device: the card's name and power limit; build every kernel from
      src/repro_torch/csrc (one nvcc per source, all at once).
   2. kernels: each CUDA kernel against its plain PyTorch version on the
-     card, at both served models' shapes and ragged ones (attention fp32
-     2e-5, bf16 2e-2; grouped matmul fp32 1e-4, bf16 atol 1e-1 / rtol 5e-2:
-     the repo's kernel tolerances), then its median time at each served
-     model's shapes beside the plain version's, one PyTorch call's that
-     computes the same function (scaled_dot_product_attention, torch.bmm:
-     timed here only, the port never calls them) and the least time the
-     card could take (the bound).
-  3. parity: qwen2-1.5b and granite-moe-3b-a800m at full width, cut to 2
-     layers, fp32, one seeded set of weights on the card and on the CPU:
-     prefill logits and 4 decode steps agree within atol 2e-4 / rtol 2e-3.
-  4. serve: qwen2-1.5b (28 layers) and granite-moe-3b-a800m (32 layers) at
-     full width, bf16, random weights, behind repro_torch.launch.serve:
-     every request finishes, every logit is finite, and every prefill and
-     decode step launches each kernel of its path exactly as often as the
-     model has layers (grouped matmul: 3 per layer). Then one profiler
-     window over full-width decode steps of each model: wall time, device
-     busy share, device time by kernel family and by kernel.
-The line before the last is a JSON object with every kernel's numbers at
-granite-moe-3b-a800m's shapes, with its launches from granite's poisson5
-run; the last line is {"ok": true, "device": {...}}.
+     card, at the served models' shapes and ragged ones (attention fp32
+     2e-5, bf16 2e-2; grouped matmul fp32 1e-4, bf16 atol 1e-1 / rtol 5e-2;
+     SSD scan fp32 1e-4, bf16 x/B/C 2e-2: the repo's kernel tolerances),
+     then its median time at each served model's shapes beside the plain
+     version's, one PyTorch call's that computes the same function
+     (scaled_dot_product_attention, torch.bmm: timed here only, the port
+     never calls them; no single call computes the SSD scan) and the least
+     time the card could take (the bound).
+  3. parity: qwen2-1.5b and granite-moe-3b-a800m at full width cut to 2
+     layers, and zamba2-1.2b cut to 12 layers (2 groups of 6 Mamba layers,
+     each followed by the shared attention block), fp32, one seeded set of
+     weights on the card and on the CPU: prefill logits (zamba2: a
+     200-token prompt, 4 chunks with a ragged tail) and 4 decode steps
+     agree within atol 2e-4 / rtol 2e-3, and so does zamba2's SSM state.
+  4. serve: qwen2-1.5b (28 layers), granite-moe-3b-a800m (32 layers) and
+     zamba2-1.2b (38 Mamba layers, 6 shared-attention insertions) at full
+     width, bf16, random weights, behind repro_torch.launch.serve: every
+     request finishes, every logit is finite, and every prefill and decode
+     step launches each kernel of its path exactly as often as the model
+     has layers (grouped matmul: 3 per layer; zamba2: 38 SSD scans and 6
+     flash per prefill, 6 decode attention and no SSD scan per decode
+     step). Then one profiler window over full-width decode steps of each
+     model: wall time, device busy share, device time by kernel family and
+     by kernel; and one profiled zamba2 prefill of a 63-token prompt, the
+     only place the SSD kernel runs.
+The line before the last is a JSON object with every kernel's numbers:
+attention and grouped matmul at granite-moe-3b-a800m's shapes with their
+launches from granite's poisson5 run, the SSD scan at zamba2-1.2b's prefill
+shape with its launches from zamba2's poisson5 run; the last line is
+{"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -43,12 +53,18 @@ import torch
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12      # dense bf16 tensor cores, H100 SXM data sheet
+FP32_FLOP_PER_S = 67e12       # fp32 outside the tensor cores, H100 SXM data sheet
 TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
        torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
 GMM_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),      # tests/test_kernels.py
            torch.bfloat16: dict(atol=1e-1, rtol=5e-2)}
-SERVE_ARCHS = ("qwen2-1.5b", "granite-moe-3b-a800m")
-MAIN_ARCH = "granite-moe-3b-a800m"   # this slice's path: it runs every kernel
+SSD_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),      # tests/test_kernels.py
+           torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+SERVE_ARCHS = ("qwen2-1.5b", "granite-moe-3b-a800m", "zamba2-1.2b")
+# Each kernel's path: granite's runs attention and the grouped matmul,
+# zamba2's the SSD scan (and attention).
+MAIN_ARCH = "granite-moe-3b-a800m"
+SSD_ARCH = "zamba2-1.2b"
 SERVE_MAX_LEN = 256
 
 
@@ -89,15 +105,21 @@ def _time_ms(fn, flush, reps=30):
     memset, then a read of the same buffer, so that the call finds the L2
     cold and clean (no dirty lines of the memset left to write back while it
     runs). A spin kernel queued before the start event keeps the device busy
-    until the host has enqueued the whole call, so the events bracket device
-    work only, not the host's launch overhead."""
+    until the host has enqueued the whole call (it spins twice the host's
+    enqueue time of one call, and at least about 1 ms: a plain version of
+    many small ops takes longer than that to enqueue), so the events
+    bracket device work only, not the host's launch overhead."""
     fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    spin = int(2e9 * max(1e-3, 2 * (time.perf_counter() - t0)))   # ~2 cycles per ns
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         flush.zero_()
         flush.sum()
-        torch.cuda._sleep(2_000_000)          # about 1 ms of spinning
+        torch.cuda._sleep(spin)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
@@ -119,10 +141,11 @@ def _host_us(fn, n=200):
     return (t1 - t0) / n * 1e6
 
 
-def _bound(nbytes, flops):
-    """Least time (ms) for bf16 work: the larger of bytes over HBM rate and
-    operations over the bf16 tensor-core rate, and which of the two."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+def _bound(nbytes, flops, flop_rate=BF16_FLOP_PER_S):
+    """Least time (ms): the larger of bytes over HBM rate and operations
+    over the card's peak rate for their type (bf16 tensor cores unless
+    given), and which of the two."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flop_rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -143,6 +166,8 @@ def phase_kernels():
         cases += [(24, 8, 64, s, s, True) for s in (8, 16, 32, 64)]
         cases += [(12, 2, 128, 64, 100, False), (4, 2, 64, 48, 48, True),
                   (6, 6, 32, 80, 80, True)]
+        # zamba2-1.2b's shared block at exact prompt lengths (H=KH=32, D=64)
+        cases += [(32, 32, 64, s, s, True) for s in (8, 63, 200)]
         for H, KH, D, Sq, Sk, causal in cases:
             for window in (0, 64):
                 q = _randn(gen, 2, Sq, H, D, dtype=dtype)
@@ -155,7 +180,7 @@ def phase_kernels():
                     f"flash {dtype} H={H} KH={KH} D={D} Sq={Sq} Sk={Sk} causal={causal} "
                     f"window={window}", out, want, **TOL[dtype]))
                 n_flash += 1
-        for B, H, KH, D, S in ((8, 12, 2, 128, 256), (8, 24, 8, 64, 256),
+        for B, H, KH, D, S in ((8, 12, 2, 128, 256), (8, 24, 8, 64, 256), (8, 32, 32, 64, 256),
                                (8, 12, 2, 128, 1500), (3, 32, 2, 64, 200),
                                (2, 6, 6, 32, 64)):
             lens = torch.randint(1, S + 1, (B,), generator=gen, device="cuda",
@@ -183,11 +208,11 @@ def phase_kernels():
                   f"plain {r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms, "
                   f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}); "
                   f"host enqueue {r['host_us']:.1f} us/call")
-    # The kernels line reports the main path's shapes: granite's, the path
-    # that runs every kernel and whose launches are counted below.
+    # The kernels line reports attention at granite's shapes: the path whose
+    # attention launches are counted below.
     flash, decode = rows[MAIN_ARCH]
     flash["max_abs_err"], decode["max_abs_err"] = flash_err, decode_err
-    return [flash, decode, _gmm_kernel(gen, flush)]
+    return [flash, decode, _gmm_kernel(gen, flush), _ssd_kernel(gen, flush)]
 
 
 def _attention_rows(arch, gen, flush):
@@ -304,25 +329,131 @@ def _gmm_kernel(gen, flush):
     return gmm
 
 
+def _ssd_inputs(gen, B, S, H, P, N, dtype, init=False):
+    """x, dt, A, B, C, D, initial state: x/B/C in ``dtype``, the rest fp32
+    (the distributions of tests/test_kernels.py's SSD sweep)."""
+    f32 = torch.float32
+    u = lambda lo, hi, *shape: lo + (hi - lo) * torch.rand(shape, generator=gen, device="cuda")  # noqa: E731
+    return (_randn(gen, B, S, H, P, dtype=dtype), u(0.001, 0.1, B, S, H), -u(0.5, 2.0, H),
+            _randn(gen, B, S, N, dtype=dtype), _randn(gen, B, S, N, dtype=dtype),
+            _randn(gen, H, dtype=f32), _randn(gen, B, H, P, N, dtype=f32) if init else None)
+
+
+def _ssd_cost(B, S, H, P, N, itemsize, init):
+    """Bytes the scan must move (each input read once, y and the final state
+    written once) and the fp32 operations it needs: per (b, chunk of v
+    tokens) C.B^T over u <= t, once for all heads; per head the masked
+    scores times x, the read of the carried state (not where that state is
+    the zero initial state) and the state update."""
+    nbytes = itemsize * (2 * B * S * H * P + 2 * B * S * N) + 4 * (B * S * H + 2 * H) \
+        + 4 * B * H * P * N * (2 if init else 1)
+    flops = 0
+    for c0 in range(0, S, 64):
+        v = min(64, S - c0)
+        tri = v * (v + 1) // 2
+        state_read = 2 * v * N * P if (c0 or init) else 0
+        flops += B * (2 * tri * N + H * (2 * tri * P + state_read + 2 * v * P * N))
+    return nbytes, flops
+
+
+def _ssd_kernel(gen, flush):
+    """The SSD scan against its plain version on both dtypes of x/B/C, at
+    the test sweep's (H, P, N), a P that 16 does not divide, and zamba2's
+    (64, 64, 64); S from 1 to 1000 (ragged tails); B 1 and 3, B=3 with a
+    nonzero initial state; then zamba2's layout, x/B/C as column slices of
+    one conv buffer. Timed at zamba2-1.2b's prefill shape (B=1, S=64, bf16),
+    and the kernel alone at S=256 and 1000."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.mamba_scan import ops as ms_ops
+    from repro_torch.kernels.mamba_scan import ref as ms_ref
+
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        n = 0
+        for H, P, N in ((2, 16, 16), (3, 16, 32), (1, 64, 64), (2, 24, 32), (64, 64, 64)):
+            for S in (1, 8, 63, 64, 100, 128, 200, 1000):
+                for B in (1, 3):
+                    args = _ssd_inputs(gen, B, S, H, P, N, dtype, init=B == 3)
+                    y, st = ms_ops.ssd_scan(*args, with_state=True)
+                    yw, sw = ms_ref.ssd_chunked_reference(*args)
+                    torch.cuda.synchronize()
+                    what = f"ssd {dtype} B={B} S={S} H={H} P={P} N={N}"
+                    errs[dtype] = max(errs.get(dtype, 0.0),
+                                      _check(what + " y", y, yw, **SSD_TOL[dtype]),
+                                      _check(what + " state", st, sw, **SSD_TOL[dtype]))
+                    n += 1
+        # the model's layout: x, B and C are column slices of one conv buffer
+        H, P, N = 64, 64, 64
+        for S in (63, 200):
+            buf = _randn(gen, 1, S, H * P + 2 * N, dtype=dtype)
+            x, Bm, Cm = buf[..., :H * P].view(1, S, H, P), buf[..., H * P:H * P + N], buf[..., H * P + N:]
+            _, dt, A, _, _, D, _ = _ssd_inputs(gen, 1, S, H, P, N, dtype)
+            y, st = ms_ops.ssd_scan(x, dt, A, Bm, Cm, D, with_state=True)
+            yw, sw = ms_ref.ssd_chunked_reference(x, dt, A, Bm, Cm, D)
+            torch.cuda.synchronize()
+            errs[dtype] = max(errs[dtype],
+                              _check(f"ssd {dtype} strided S={S} y", y, yw, **SSD_TOL[dtype]),
+                              _check(f"ssd {dtype} strided S={S} state", st, sw, **SSD_TOL[dtype]))
+            n += 1
+        print(f"[kernels] ssd_scan {str(dtype)[6:]}: {n} cases match the plain version "
+              f"(y and final state), max abs err {errs[dtype]:.3e}")
+
+    cfg = get_config(SSD_ARCH)
+    H, P, N = cfg.ssm_nheads, cfg.ssm_head_dim, cfg.ssm_state
+    B, S = 1, 64
+    args = _ssd_inputs(gen, B, S, H, P, N, torch.bfloat16)
+    bound, by = _bound(*_ssd_cost(B, S, H, P, N, 2, False), flop_rate=FP32_FLOP_PER_S)
+    ssd = {"name": "ssd_scan", "route": "cuda",
+           "source": "src/repro_torch/csrc/mamba_scan.cu",
+           "replaces": "src/repro/kernels/mamba_scan/kernel.py:79",
+           "max_abs_err": max(errs.values()),
+           "ms": _time_ms(lambda: ms_ops.ssd_scan(*args, with_state=True), flush),
+           "plain_ms": _time_ms(lambda: ms_ref.ssd_chunked_reference(*args), flush),
+           "bound_ms": bound, "bound_by": by, "library_ms": None,
+           "host_us": _host_us(lambda: ms_ops.ssd_scan(*args, with_state=True)),
+           "shape": f"B={B} S={S} H={H} P={P} N={N} bf16 x/B/C"}
+    print(f"[kernels] ssd_scan at {SSD_ARCH}'s {ssd['shape']}: kernel {ssd['ms']:.4f} ms, "
+          f"plain {ssd['plain_ms']:.4f} ms, no library call, bound {ssd['bound_ms']:.6f} ms "
+          f"({ssd['bound_by']}, fp32 rate); host enqueue {ssd['host_us']:.1f} us/call")
+    sweep = []
+    for S in (256, 1000):
+        args = _ssd_inputs(gen, B, S, H, P, N, torch.bfloat16)
+        b_ms, b_by = _bound(*_ssd_cost(B, S, H, P, N, 2, False), flop_rate=FP32_FLOP_PER_S)
+        sweep.append(f"S={S}: {_time_ms(lambda: ms_ops.ssd_scan(*args, with_state=True), flush):.4f} ms "
+                     f"(bound {b_ms:.6f}, {b_by})")
+    print(f"[kernels] ssd_scan alone at B=1 H={H} P={P} N={N} bf16: {'; '.join(sweep)}")
+    return ssd
+
+
 # ---------------------------------------------------------------- phase 3
 def phase_parity(arch):
+    """``arch`` at full width, cut in depth, fp32, on the card and on the
+    CPU from one seeded set of weights: 2 layers, a 64-token prompt; for the
+    hybrid, 12 layers (2 groups of attn_every=6 Mamba layers, each followed
+    by the shared block) and a 200-token prompt (4 SSD chunks, the last
+    ragged), with its SSM state compared too."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models import common as cm
     from repro_torch.models.api import get_model
 
-    cfg = get_config(arch).with_(n_layers=2, dtype="float32")
+    cfg = get_config(arch)
+    hybrid = cfg.family == "hybrid"
+    cfg = cfg.with_(n_layers=2 * cfg.attn_every if hybrid else 2, dtype="float32")
     model = get_model(cfg)
     p_cpu = model.init(torch.Generator().manual_seed(0), cfg)
     p_gpu = cm.nest({k: v.cuda() for k, v in cm.flatten(p_cpu).items()})
     rng = np.random.default_rng(0)
-    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 64)).astype(np.int32))
-    last = torch.tensor([40, 63], dtype=torch.int32)
+    S = 200 if hybrid else 64
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, S)).astype(np.int32))
+    last = torch.tensor([40, S - 1], dtype=torch.int32)
     steps = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 2)).astype(np.int32))
     tol = dict(atol=2e-4, rtol=2e-3)     # the repo's fp32 model bound
 
     logits, caches = {}, {}
     for dev, p in (("cpu", p_cpu), ("cuda", p_gpu)):
         lg, c = model.prefill(p, cfg, {"tokens": toks.to(dev)}, last.to(dev))
+        # room for 4 decode steps along the K/V sequence axis; the hybrid's
+        # SSM and conv state are per sequence and keep their shape
         pad = torch.zeros(c["k"].shape[:2] + (4,) + c["k"].shape[3:], device=dev)
         c = dict(c, k=torch.cat([c["k"], pad], 2), v=torch.cat([c["v"], pad], 2))
         logits[dev], caches[dev] = [lg], c
@@ -332,9 +463,14 @@ def phase_parity(arch):
     err = max(_check(f"parity {arch} {'prefill' if i == 0 else f'decode {i}'}",
                      g.cpu(), c, **tol)
               for i, (c, g) in enumerate(zip(logits["cpu"], logits["cuda"])))
-    print(f"[parity] {arch} full width, 2 layers, fp32: prefill + 4 decode "
-          f"steps on the card match the CPU, max abs err {err:.3e} "
-          f"(atol {tol['atol']}, rtol {tol['rtol']})")
+    state = ""
+    if hybrid:
+        ssm = caches["cpu"]["ssm"]
+        state = (f"; SSM state (max |value| {ssm.abs().max().item():.3e}) max abs err "
+                 f"{_check(f'parity {arch} SSM state', caches['cuda']['ssm'].cpu(), ssm, **tol):.3e}")
+    print(f"[parity] {arch} full width, {cfg.n_layers} layers, fp32, {S}-token prompt: "
+          f"prefill + 4 decode steps on the card match the CPU, logits max abs err "
+          f"{err:.3e}{state} (atol {tol['atol']}, rtol {tol['rtol']})")
 
 
 # ---------------------------------------------------------------- phase 4
@@ -343,20 +479,32 @@ def _kernel_ops():
     launches of its kernel and nothing else."""
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.mamba_scan import ops as ms_ops
     from repro_torch.kernels.moe_gmm import ops as gmm_ops
     return {"flash_attention": fa_ops.flash_attention,
             "decode_attention": da_ops.decode_attention,
-            "grouped_matmul": gmm_ops.grouped_matmul}
+            "grouped_matmul": gmm_ops.grouped_matmul,
+            "ssd_scan": ms_ops.ssd_scan}
 
 
 def _per_call_launches(cfg):
     """The launches each prefill and each decode step must make: one
     attention kernel per layer, and for MoE three grouped matmuls per layer
-    (gate, up, down)."""
+    (gate, up, down). The hybrid: one SSD scan per Mamba layer in prefill
+    (none in decode, whose one-token recurrence is plain torch) and one
+    attention kernel per shared-block insertion."""
     L = cfg.n_layers
+    if cfg.family == "hybrid":
+        ni = L // cfg.attn_every
+        return {"prefill": {"flash_attention": ni, "decode_attention": 0,
+                            "grouped_matmul": 0, "ssd_scan": L},
+                "decode": {"flash_attention": 0, "decode_attention": ni,
+                           "grouped_matmul": 0, "ssd_scan": 0}}
     gmm = 3 * L if cfg.family == "moe" else 0
-    return {"prefill": {"flash_attention": L, "decode_attention": 0, "grouped_matmul": gmm},
-            "decode": {"flash_attention": 0, "decode_attention": L, "grouped_matmul": gmm}}
+    return {"prefill": {"flash_attention": L, "decode_attention": 0, "grouped_matmul": gmm,
+                        "ssd_scan": 0},
+            "decode": {"flash_attention": 0, "decode_attention": L, "grouped_matmul": gmm,
+                       "ssd_scan": 0}}
 
 
 def phase_serve(arch):
@@ -365,14 +513,15 @@ def phase_serve(arch):
     decode step is checked for its launches and finite logits."""
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.serve import serve
-    from repro_torch.models import transformer
+    from repro_torch.models.api import get_model
 
     cfg = get_config(arch)
+    model = get_model(cfg)      # the family's module, which the engine calls
     ops = _kernel_ops()
     want_per_call = _per_call_launches(cfg)
     calls = {"prefill": 0, "decode": 0}
     finite = torch.ones((), dtype=torch.bool, device="cuda")
-    real = {"prefill": transformer.prefill, "decode": transformer.decode_step}
+    real = {"prefill": model.prefill, "decode": model.decode_step}
 
     def counted(kind):
         def call(*a, **kw):
@@ -386,7 +535,7 @@ def phase_serve(arch):
             return logits, cache
         return call
 
-    transformer.prefill, transformer.decode_step = counted("prefill"), counted("decode")
+    model.prefill, model.decode_step = counted("prefill"), counted("decode")
     try:
         # warm-up: first-call costs (cuBLAS handles, allocator) out of the numbers
         serve(cfg, n_requests=2, rate=1e3, max_len=SERVE_MAX_LEN, seed=1, device="cuda")
@@ -408,59 +557,71 @@ def phase_serve(arch):
             print(f"[serve] {arch} {label}: {json.dumps(summary)}")
             runs[label] = (launches, summary)
     finally:
-        transformer.prefill, transformer.decode_step = real["prefill"], real["decode"]
+        model.prefill, model.decode_step = real["prefill"], real["decode"]
     torch.cuda.empty_cache()
     return runs
 
 
 KERNEL_FAMILIES = {"grouped matmul": ("gmm_kernel",),
-                   "attention": ("flash_fwd_kernel", "decode_kernel")}
+                   "attention": ("flash_fwd_kernel", "decode_kernel"),
+                   "ssd scan": ("ssd_scan_kernel",)}
+
+
+def _profiled(what, fn, calls):
+    """One torch.profiler window over ``calls`` runs of ``fn``: prints the
+    wall time per call, the device's busy share, its split into the port's
+    kernel families and the rest, and the kernels by device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / calls * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev = {e.key: e.self_device_time_total / 1e3 / calls for e in kernels}   # ms per call
+    busy = sum(dev.values())
+    n_launch = sum(e.count for e in kernels) / calls
+    print(f"[profile] {what}: wall {wall_ms:.2f} ms, device busy {busy:.2f} ms "
+          f"({100 * busy / wall_ms:.1f}%), {n_launch:.0f} device ops per call")
+    assert busy > 0, f"{what}: the profiler saw no device time"
+    split = {fam: sum(ms for name, ms in dev.items() if any(k in name for k in keys))
+             for fam, keys in KERNEL_FAMILIES.items()}
+    split["rest"] = busy - sum(split.values())
+    print(f"[profile] {what} device busy split (ms/call): " + ", ".join(
+        f"{fam} {ms:.3f} ({100 * ms / busy:.1f}%)" for fam, ms in split.items()))
+    for name, ms in sorted(dev.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"[profile]   {ms:8.3f} ms/call  {name[:110]}")
 
 
 def phase_profile(arch, steps=4):
-    """Where a full-width decode step's time goes: one torch.profiler window
-    over `steps` engine steps with all 8 slots busy. Prints the wall time
-    per step, the device's busy share, its split into the port's kernel
-    families and the rest, and the kernels by device time."""
-    from torch.profiler import ProfilerActivity, profile
+    """Where a full-width decode step's time goes: one profiler window over
+    `steps` engine steps with all 8 slots busy. For the hybrid also one
+    prefill of a 63-token prompt, where its SSD kernel runs."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models.api import get_model
     from repro_torch.serving.engine import TorchEngine
 
     cfg = get_config(arch)
-    params = get_model(cfg).init(torch.Generator(device="cuda").manual_seed(0), cfg)
+    model = get_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), cfg)
     eng = TorchEngine(cfg, params, max_batch=8, max_len=SERVE_MAX_LEN)
     rng = np.random.default_rng(0)
     for rid in range(8):
         eng.submit(rid, rng.integers(0, cfg.vocab_size, size=(48,)), 64)
     eng.step()                                   # 8 prefills + 1 decode step
     eng.step()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            eng.step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) / steps * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev = {e.key: e.self_device_time_total / 1e3 / steps for e in kernels}   # ms per step
-    busy = sum(dev.values())
-    n_launch = sum(e.count for e in kernels) / steps
-    print(f"[profile] decode step, 8 slots busy, {arch} bf16: wall {wall_ms:.2f} ms, "
-          f"device busy {busy:.2f} ms ({100 * busy / wall_ms:.1f}%), "
-          f"{n_launch:.0f} device ops per step")
-    assert busy > 0, f"{arch}: the profiler saw no device time"
-    split = {fam: sum(ms for name, ms in dev.items() if any(k in name for k in keys))
-             for fam, keys in KERNEL_FAMILIES.items()}
-    split["rest"] = busy - sum(split.values())
-    print(f"[profile] {arch} device busy split (ms/step): " + ", ".join(
-        f"{fam} {ms:.3f} ({100 * ms / busy:.1f}%)" for fam, ms in split.items()))
-    for name, ms in sorted(dev.items(), key=lambda kv: -kv[1])[:10]:
-        print(f"[profile]   {ms:8.3f} ms/step  {name[:110]}")
+    _profiled(f"decode step, 8 slots busy, {arch} bf16", eng.step, steps)
+    if cfg.family == "hybrid":
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 63)).astype(np.int32)).cuda()
+        prefill = lambda: model.prefill(params, cfg, {"tokens": toks})  # noqa: E731
+        prefill()
+        _profiled(f"prefill of a 63-token prompt, {arch} bf16", prefill, 1)
     del eng, params
     torch.cuda.empty_cache()
-    return wall_ms, busy
 
 
 def main():
@@ -480,12 +641,13 @@ def main():
     runs = {arch: phase_serve(arch) for arch in SERVE_ARCHS}
     for arch in SERVE_ARCHS:
         phase_profile(arch)
-    # launches on this slice's main path (granite, which runs every kernel),
-    # in its poisson5 run; each path's own counts were checked in phase 4
-    launches = runs[MAIN_ARCH]["poisson5"][0]
+    # each kernel's launches on its path's poisson5 run (granite's runs
+    # attention and the grouped matmul, zamba2's the SSD scan); each path's
+    # own counts per prefill and decode step were checked in phase 4
     for r in kernels:
-        r["launches"] = launches[r["name"]]
-        assert r["launches"] > 0, f"{r['name']} was never launched on the main path"
+        arch = SSD_ARCH if r["name"] == "ssd_scan" else MAIN_ARCH
+        r["launches"] = runs[arch]["poisson5"][0][r["name"]]
+        assert r["launches"] > 0, f"{r['name']} was never launched on {arch}'s path"
     print(f"[done] all phases passed in {time.time() - t0:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

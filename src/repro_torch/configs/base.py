@@ -1,7 +1,8 @@
-"""Model configuration for the decoders the port serves (dense and MoE).
+"""Model configuration for the decoders the port serves (dense, MoE and
+hybrid Mamba2).
 
 An own copy of ``ModelConfig``, cut to the fields and properties the
-dense and MoE paths read. ``weight_sharding`` and ``kv_seq_shard`` are kept so
+dense, MoE and hybrid paths read. ``weight_sharding`` and ``kv_seq_shard`` are kept so
 that the per-arch ``config()`` functions stay verbatim copies; nothing
 in the port reads them until it has a mesh.
 """
@@ -13,7 +14,7 @@ from dataclasses import dataclass, replace
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # dense | moe (the families ported so far)
+    family: str                      # dense | moe | hybrid (the families ported so far)
     n_layers: int
     d_model: int
     n_heads: int
@@ -38,6 +39,13 @@ class ModelConfig:
     #   tokens.
     moe_impl: str = "onehot"
 
+    # --- SSM / Mamba2 ---
+    ssm_state: int = 0               # N (state size per head)
+    ssm_head_dim: int = 64           # P (channels per SSM head)
+    ssm_expand: int = 2              # d_inner = expand * d_model
+    ssm_conv: int = 4
+    attn_every: int = 0              # hybrid: shared attn block after every k SSM layers
+
     dtype: str = "bfloat16"          # weight and activation dtype
     weight_sharding: str = "tp"      # sharding hint, unused without a mesh
     kv_seq_shard: bool = False       # sharding hint, unused without a mesh
@@ -45,6 +53,20 @@ class ModelConfig:
     @property
     def resolved_head_dim(self) -> int:
         return self.head_dim or (self.d_model // self.n_heads)
+
+    @property
+    def d_inner(self) -> int:
+        """Mamba2 inner width."""
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_nheads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
+    @property
+    def is_recurrent(self) -> bool:
+        """True if decode state is O(1) in context length (no full KV)."""
+        return self.family in ("ssm", "hybrid")
 
     def with_(self, **kw) -> "ModelConfig":
         return replace(self, **kw)

@@ -1,5 +1,5 @@
-"""--arch <id> registry. The ids are those of ``repro``; the dense and MoE
-ones are ported, the others raise until their slice lands."""
+"""--arch <id> registry. The ids are those of ``repro``; the dense, MoE and
+hybrid ones are ported, the others raise until their slice lands."""
 from __future__ import annotations
 
 import importlib
@@ -14,9 +14,10 @@ _ARCH_MODULES: Dict[str, str] = {
     "qwen2-1.5b": "repro_torch.configs.qwen2_1p5b",
     "granite-moe-3b-a800m": "repro_torch.configs.granite_moe_3b_a800m",
     "dbrx-132b": "repro_torch.configs.dbrx_132b",
+    "zamba2-1.2b": "repro_torch.configs.zamba2_1p2b",
 }
 
-_NOT_PORTED = ("zamba2-1.2b", "xlstm-350m", "whisper-base", "qwen2-vl-2b")
+_NOT_PORTED = ("xlstm-350m", "whisper-base", "qwen2-vl-2b")
 
 ARCH_IDS: List[str] = list(_ARCH_MODULES)
 

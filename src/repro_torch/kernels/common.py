@@ -40,6 +40,28 @@ def check_operands(what: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{what}: empty operand of shape {tuple(t.shape)}")
 
 
+def check_ssd_operands(what: str, compute, fp32) -> None:
+    """The SSD scan's mixed dtypes: x, B and C (``compute``) share one dtype
+    of DTYPE_CODES, while dt, A, D and the initial state (``fp32``) are
+    float32, as the model keeps them. Every operand is non-empty and its
+    last axis is contiguous; x, B, C and dt may be sliced along their batch
+    and sequence axes (the kernel takes those strides), A, D and the state
+    are contiguous. Checked on the CPU path too, so CPU tests see what the
+    card gets."""
+    dtype = compute[0].dtype
+    if dtype not in DTYPE_CODES or any(t.dtype != dtype for t in compute):
+        raise TypeError(f"{what}: x, B and C must share one dtype of "
+                        f"{list(DTYPE_CODES)}, got {[t.dtype for t in compute]}")
+    if any(t.dtype != torch.float32 for t in fp32):
+        raise TypeError(f"{what}: dt, A, D and the state must be float32, "
+                        f"got {[t.dtype for t in fp32]}")
+    for t in (*compute, *fp32):
+        if t.numel() == 0:
+            raise ValueError(f"{what}: empty operand of shape {tuple(t.shape)}")
+        if t.stride(-1) != 1:
+            raise ValueError(f"{what}: operands must be contiguous in their last axis")
+
+
 def resolve_device(device=None) -> torch.device:
     """``cuda`` unless the caller names another device; raises if CUDA is
     asked for and absent (there is no silent move to the CPU)."""

@@ -3,10 +3,10 @@ forward, prefill, decode_step and init_cache."""
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import hybrid, transformer
 
 
-_FAMILY = {"dense": transformer, "moe": transformer}
+_FAMILY = {"dense": transformer, "moe": transformer, "hybrid": hybrid}
 
 
 def get_model(cfg: ModelConfig):

@@ -53,6 +53,32 @@ def dense_init(gen: torch.Generator, fan_in: int, shape, dtype) -> torch.Tensor:
     return (x * scale).to(dtype)
 
 
+ZERO_INIT = ("bq", "bk", "bv", "conv_b")   # biases start at zero
+
+
+def init_params(gen: torch.Generator, cfg, shapes, dtype_of, const=None):
+    """Params on ``gen``'s device from flat key -> shape, as the JAX init
+    makes them: N(0, 1/fan_in) weights (fan-in: the second-to-last axis;
+    d_model for the embedding), zero biases, unit norm scales, and the
+    values of ``const`` (key -> tensor broadcast to the shape); each key in
+    ``dtype_of(key)``. Returns the nested tree."""
+    const = const or {}
+    flat = {}
+    for key, shape in shapes.items():
+        kdt = dtype_of(key)
+        name = key.rsplit("/", 1)[-1]
+        if key in const:
+            flat[key] = const[key].to(kdt).expand(shape).contiguous()
+        elif name == "scale":
+            flat[key] = torch.ones(shape, dtype=kdt, device=gen.device)
+        elif name in ZERO_INIT:
+            flat[key] = torch.zeros(shape, dtype=kdt, device=gen.device)
+        else:
+            fan_in = cfg.d_model if key == "emb/embed" else shape[-2]
+            flat[key] = dense_init(gen, fan_in, shape, kdt)
+    return nest(flat)
+
+
 # ------------------------------------------------------------------- norms
 def rmsnorm(x, p, eps: float):
     xf = x.float()

@@ -100,18 +100,7 @@ def init(gen: torch.Generator, cfg, dtype: torch.dtype | None = None):
     biases, unit norm scales (the JAX init's distributions), each key in
     ``param_dtype``."""
     dtype = dtype or cm.compute_dtype(cfg)
-    flat = {}
-    for key, shape in param_shapes(cfg).items():
-        kdt = param_dtype(key, dtype)
-        name = key.rsplit("/", 1)[-1]
-        if name == "scale":
-            flat[key] = torch.ones(shape, dtype=kdt, device=gen.device)
-        elif name in ("bq", "bk", "bv"):
-            flat[key] = torch.zeros(shape, dtype=kdt, device=gen.device)
-        else:
-            fan_in = cfg.d_model if key == "emb/embed" else shape[-2]
-            flat[key] = cm.dense_init(gen, fan_in, shape, kdt)
-    return cm.nest(flat)
+    return cm.init_params(gen, cfg, param_shapes(cfg), lambda key: param_dtype(key, dtype))
 
 
 def _embed(params, batch):

@@ -3,10 +3,12 @@
 The counterpart of ``repro.serving.engine.JaxEngine``, with the same
 semantics and public surface (``submit``, ``step``, ``drain``, ``slots``,
 ``queue``, ``iteration_log``). A fixed pool of B decode slots shares one
-pre-allocated, zeroed KV cache. Prefill runs per request at a
-power-of-two bucket, its cache is copied into a free slot, and one
-``step`` advances every slot by a token; inactive slots compute garbage
-that is masked out, keeping the step's shapes static.
+pre-allocated, zeroed cache (KV, and for recurrent families the SSM and
+conv state). Prefill runs per request, at a power-of-two bucket for
+attention families and at the exact prompt length for recurrent ones; its
+cache is copied into a free slot, and one ``step`` advances every slot by
+a token; inactive slots compute garbage that is masked out, keeping the
+step's shapes static.
 """
 from __future__ import annotations
 
@@ -61,14 +63,21 @@ class TorchEngine:
             torch.cuda.synchronize(self.device)
 
     def _insert(self, pre_cache, slot: int, length: int):
-        """Copy a prefill cache into ``slot`` IN PLACE and zero the slot's
-        tail up to max_len (what the slot held before must read as zeros)."""
-        for name in ("k", "v"):
-            dst, src = self.cache[name][:, slot], pre_cache[name][:, 0]
-            n = src.shape[1]
-            dst[:, :n].copy_(src)
-            dst[:, n:].zero_()
-        self.cache["len"][slot] = length
+        """Copy every entry of a prefill cache into ``slot`` IN PLACE: a
+        per-slot state (SSM, conv tail) whole; K/V up to the prompt, zeroing
+        the slot's tail up to max_len (what the slot held before must read
+        as zeros)."""
+        for name, buf in self.cache.items():
+            if name == "len":
+                buf[slot] = length
+                continue
+            dst, src = buf[:, slot], pre_cache[name][:, 0]
+            if name in ("k", "v"):
+                n = src.shape[1]
+                dst[:, :n].copy_(src)
+                dst[:, n:].zero_()
+            else:
+                dst.copy_(src)
 
     def submit(self, rid: int, prompt: np.ndarray, max_new: int):
         self.queue.append(EngineRequest(rid, np.asarray(prompt), max_new,
@@ -79,8 +88,11 @@ class TorchEngine:
             if self.slots[i] is None and self.queue:
                 req = self.queue.pop(0)
                 S = len(req.prompt)
-                # attention families bucket-pad (pads masked via cache len = S)
-                bucket = min(_bucket(S), self.max_len)
+                # recurrent state absorbs trailing pads, so SSM prefill runs
+                # at the exact prompt length; attention families bucket-pad
+                # (pads masked via cache len = S)
+                bucket = S if self.cfg.is_recurrent \
+                    else min(_bucket(S), self.max_len)
                 toks = np.zeros((1, bucket), np.int32)
                 toks[0, :S] = req.prompt[:bucket]
                 t0 = time.time()

@@ -174,3 +174,33 @@ def test_moe_idle_slot_length_past_max_len():
         outs.append([r.out_tokens for r in reqs])
     assert [len(t) for t in outs[1]] == [2, 29, 4]
     assert outs[1] == outs[0]
+
+
+def test_hybrid_engine_tokens_equal_jax_engine():
+    """zamba2 smoke: more requests than slots, prompts of 5-40 tokens
+    prefilled at their exact lengths (a recurrent state would absorb bucket
+    pads), the SSM and conv state copied whole into each slot, and an idle
+    slot whose length runs past max_len while the others decode."""
+    jcfg = jax_smoke_config("zamba2-1.2b")
+    jparams, _ = jax_api.get_model(jcfg).init(jax.random.PRNGKey(3), jcfg)
+    cfg = get_smoke_config("zamba2-1.2b")
+    params = params_from_numpy(_flatten(jparams), cfg, "cpu")
+    rng = np.random.default_rng(6)
+    reqs = [(rng.integers(0, cfg.vocab_size, size=(int(n),)), int(m))
+            for n, m in ((5, 30), (40, 2), (17, 4), (9, 3), (23, 5), (12, 2))]
+    outs, logs = [], []
+    for eng in (JaxEngine(jcfg, jparams, max_batch=3, max_len=48),
+                TorchEngine(cfg, params, max_batch=3, max_len=48)):
+        for i, (p, m) in enumerate(reqs):
+            eng.submit(i, p, m)
+        objs = list(eng.queue)
+        for _ in range(3):
+            eng.step()
+        assert eng.queue                         # later requests wait for a slot
+        eng.drain()
+        assert int(np.asarray(eng.cache["len"]).max()) > 48   # an idle slot ran past
+        outs.append([r.out_tokens for r in objs])
+        logs.append([n for k, n, _ in eng.iteration_log if k == "prefill"])
+    assert [len(t) for t in outs[1]] == [m + 1 for _, m in reqs]
+    assert outs[1] == outs[0]
+    assert sorted(logs[1]) == sorted(len(p) for p, _ in reqs)   # exact lengths
