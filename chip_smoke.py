@@ -5,16 +5,21 @@
 
 Phases; any failure exits non-zero and no phase's failure is caught:
   1. device: the card's name and power limit; build every kernel from
-     src/repro_torch/csrc (one nvcc per source, all at once).
+     src/repro_torch/csrc (one nvcc per source, all at once), print each
+     kernel's registers and spills, and check that the two tensor-core
+     kernels' SASS holds HMMA and LDGSTS.
   2. kernels: each CUDA kernel against its plain PyTorch version on the
      card, at the served models' shapes and ragged ones (attention fp32
      2e-5, bf16 2e-2; grouped matmul fp32 1e-4, bf16 atol 1e-1 / rtol 5e-2;
-     SSD scan fp32 1e-4, bf16 x/B/C 2e-2: the repo's kernel tolerances),
-     then its median time at each served model's shapes beside the plain
+     SSD scan fp32 1e-4, bf16 x/B/C 2e-2: the repo's kernel tolerances;
+     besides, every bf16 flash row within 1e-2 of its norm against the
+     plain version in fp32), then its median time at each served model's shapes beside the plain
      version's, one PyTorch call's that computes the same function
      (scaled_dot_product_attention, torch.bmm: timed here only, the port
      never calls them; no single call computes the SSD scan) and the least
-     time the card could take (the bound).
+     time the card could take (the bound). Flash is timed at S = 64, 256
+     and 2048, the grouped matmul at C = 4, 8, 16 and 64; both beside the
+     earlier CUDA-core kernel on the same bf16 inputs (before_ms).
   3. parity: qwen2-1.5b and granite-moe-3b-a800m at full width cut to 2
      layers, and zamba2-1.2b cut to 12 layers (2 groups of 6 Mamba layers,
      each followed by the shared attention block), fp32, one seeded set of
@@ -32,7 +37,8 @@ Phases; any failure exits non-zero and no phase's failure is caught:
      model: wall time, device busy share, device time by kernel family and
      by kernel; and one profiled zamba2 prefill of a 63-token prompt, the
      only place the SSD kernel runs.
-The line before the last is a JSON object with every kernel's numbers:
+The line before the last is a JSON object with every kernel's numbers
+(before_ms for the two tensor-core kernels):
 attention and grouped matmul at granite-moe-3b-a800m's shapes with their
 launches from granite's poisson5 run, the SSD scan at zamba2-1.2b's prefill
 shape with its launches from zamba2's poisson5 run; the last line is
@@ -58,6 +64,11 @@ TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
        torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
 GMM_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),      # tests/test_kernels.py
            torch.bfloat16: dict(atol=1e-1, rtol=5e-2)}
+# The bf16 flash kernel's rows against the plain version on the same inputs
+# in fp32: ||out - want|| / ||want|| per (batch, query, head) row. The
+# output's rounding and P's (each 2^-9 relative) leave about 4e-3; an error
+# in the softmax rescale or a dropped KV tile moves a long row far more.
+FLASH_ROW_REL = 1e-2
 SSD_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),      # tests/test_kernels.py
            torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
 SERVE_ARCHS = ("qwen2-1.5b", "granite-moe-3b-a800m", "zamba2-1.2b")
@@ -66,6 +77,13 @@ SERVE_ARCHS = ("qwen2-1.5b", "granite-moe-3b-a800m", "zamba2-1.2b")
 MAIN_ARCH = "granite-moe-3b-a800m"
 SSD_ARCH = "zamba2-1.2b"
 SERVE_MAX_LEN = 256
+
+
+def _row_rel(out, want):
+    """Largest ||out - want|| / ||want|| over the rows of the last axis."""
+    out, want = out.float(), want.float()
+    return (torch.linalg.vector_norm(out - want, dim=-1)
+            / torch.linalg.vector_norm(want, dim=-1)).max().item()
 
 
 def _check(what, out, want, atol, rtol):
@@ -94,9 +112,49 @@ def phase_device():
     libs = build.build()
     print(f"[build] {sorted(libs)} in {time.time() - t0:.1f}s")
     for name in libs:
+        fn = "?"
         for line in build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}")
+            if "Function properties for" in line:
+                fn = _demangle(line.split("Function properties for")[1].strip())
+            elif "registers" in line or "spill" in line:
+                print(f"[build] {name} {fn}: {line.strip()}")
+    _sass_check(libs)
+
+
+def _demangle(name):
+    """A kernel's name and template arguments (repro::(anonymous namespace)::
+    flash_mma_kernel<128, 4> and the like), or the mangled name where
+    c++filt is missing."""
+    try:
+        full = subprocess.run(["c++filt", name], capture_output=True, text=True,
+                              timeout=30).stdout.strip()
+    except OSError:
+        return name
+    return full.split("(anonymous namespace)::")[-1].split("(")[0] or name
+
+
+# The bf16 kernels must run on the tensor cores (HMMA) and stage their tiles
+# with asynchronous copies (LDGSTS).
+TENSOR_CORE_KERNELS = {"moe_gmm": "gmm_mma_kernel", "flash_attention": "flash_mma_kernel"}
+
+
+def _sass_check(libs):
+    """Count HMMA and LDGSTS instructions in each tensor-core kernel's SASS
+    (cuobjdump of the built library); fail if either is missing."""
+    from repro_torch.kernels import build
+    cuobjdump = Path(build.nvcc()).with_name("cuobjdump")
+    for lib, kernel in TENSOR_CORE_KERNELS.items():
+        sass = subprocess.run([str(cuobjdump), "-sass", str(libs[lib])], capture_output=True,
+                              text=True, check=True, timeout=300).stdout
+        counts = {}
+        for fn in sass.split("Function : ")[1:]:
+            name = fn.split(None, 1)[0]
+            if kernel in name:
+                counts[name] = (fn.count("HMMA"), fn.count("LDGSTS"))
+        assert counts and all(h and g for h, g in counts.values()), \
+            f"{kernel}: instantiations without HMMA or LDGSTS: {counts}"
+        print(f"[build] {kernel}: {len(counts)} instantiations, HMMA/LDGSTS per instantiation "
+              + " ".join(f"{h}/{g}" for h, g in counts.values()))
 
 
 # ---------------------------------------------------------------- phase 2
@@ -156,7 +214,7 @@ def phase_kernels():
     from repro_torch.kernels.flash_attention import ref as fa_ref
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    flash_err = decode_err = 0.0
+    flash_err = decode_err = flash_rel = 0.0
     n_flash = n_decode = 0
     for dtype in (torch.float32, torch.bfloat16):
         # qwen2-1.5b's head layout (H=12, KH=2, D=128), granite-moe-3b-a800m's
@@ -168,6 +226,11 @@ def phase_kernels():
                   (6, 6, 32, 80, 80, True)]
         # zamba2-1.2b's shared block at exact prompt lengths (H=KH=32, D=64)
         cases += [(32, 32, 64, s, s, True) for s in (8, 63, 200)]
+        # each served model's heads from one token to a long prompt, and
+        # Sq != Sk without causality both ways
+        for H, KH, D in ((12, 2, 128), (24, 8, 64), (32, 32, 64)):
+            cases += [(H, KH, D, s, s, True) for s in (1, 63, 2048)]
+            cases += [(H, KH, D, 37, 100, False), (H, KH, D, 100, 37, False)]
         for H, KH, D, Sq, Sk, causal in cases:
             for window in (0, 64):
                 q = _randn(gen, 2, Sq, H, D, dtype=dtype)
@@ -176,9 +239,15 @@ def phase_kernels():
                 out = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
                 want = fa_ref.mha_reference(q, k, v, causal=causal, window=window)
                 torch.cuda.synchronize()
-                flash_err = max(flash_err, _check(
-                    f"flash {dtype} H={H} KH={KH} D={D} Sq={Sq} Sk={Sk} causal={causal} "
-                    f"window={window}", out, want, **TOL[dtype]))
+                what = (f"flash {dtype} H={H} KH={KH} D={D} Sq={Sq} Sk={Sk} causal={causal} "
+                        f"window={window}")
+                flash_err = max(flash_err, _check(what, out, want, **TOL[dtype]))
+                if dtype == torch.bfloat16:
+                    rel = _row_rel(out, fa_ref.mha_reference(
+                        q.float(), k.float(), v.float(), causal=causal, window=window))
+                    assert rel <= FLASH_ROW_REL, \
+                        f"{what}: row error {rel:.3e} exceeds {FLASH_ROW_REL} of the row's norm"
+                    flash_rel = max(flash_rel, rel)
                 n_flash += 1
         for B, H, KH, D, S in ((8, 12, 2, 128, 256), (8, 24, 8, 64, 256), (8, 32, 32, 64, 256),
                                (8, 12, 2, 128, 1500), (3, 32, 2, 64, 200),
@@ -197,22 +266,85 @@ def phase_kernels():
                     f"decode {dtype} B={B} H={H} KH={KH} D={D} Smax={S} window={window}",
                     out, want, **TOL[dtype]))
                 n_decode += 1
-    print(f"[kernels] flash: {n_flash} cases match the plain version, max abs err {flash_err:.3e}")
+    print(f"[kernels] flash: {n_flash} cases match the plain version, max abs err {flash_err:.3e}; "
+          f"bf16 rows within {flash_rel:.3e} of the fp32 plain version's norm")
     print(f"[kernels] decode: {n_decode} cases match the plain version, max abs err {decode_err:.3e}")
 
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
     rows = {arch: _attention_rows(arch, gen, flush) for arch in SERVE_ARCHS}
     for arch, pair in rows.items():
         for r in pair:
-            print(f"[kernels] {r['name']} at {arch}'s {r['shape']}: kernel {r['ms']:.4f} ms, "
-                  f"plain {r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms, "
-                  f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}); "
-                  f"host enqueue {r['host_us']:.1f} us/call")
+            _print_attention(arch, r)
+    # Flash alone at the longer buckets the engine pads to and a long prompt.
+    for arch in SERVE_ARCHS:
+        for S in FLASH_TIMED_S[1:]:
+            _print_attention(arch, _flash_row(arch, S, gen, flush))
     # The kernels line reports attention at granite's shapes: the path whose
     # attention launches are counted below.
     flash, decode = rows[MAIN_ARCH]
     flash["max_abs_err"], decode["max_abs_err"] = flash_err, decode_err
     return [flash, decode, _gmm_kernel(gen, flush), _ssd_kernel(gen, flush)]
+
+
+FLASH_TIMED_S = (64, 256, 2048)   # the 64-token bucket, a longer one, a long prompt
+
+
+def _flash_row(arch, S, gen, flush):
+    """Flash attention timed at ``arch``'s heads, B=1, Sq=Sk=S, bf16,
+    causal, beside its plain version, scaled_dot_product_attention (timed
+    here only) and the bound."""
+    import torch.nn.functional as F
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    cfg = get_config(arch)
+    H, KH, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    B = 1
+    q, k, v = (_randn(gen, B, S, n, D, dtype=torch.bfloat16) for n in (H, KH, KH))
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    pairs = S * (S + 1) // 2
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    bound, by = _bound(nbytes, 4 * B * pairs * H * D)
+    return {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:90",
+        "ms": _time_ms(lambda: fa_ops.flash_attention(q, k, v), flush),
+        "before_ms": _time_ms(lambda: _flash_before(q, k, v), flush),
+        "plain_ms": _time_ms(lambda: fa_ref.mha_reference(q, k, v), flush),
+        "bound_ms": bound, "bound_by": by,
+        "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), flush),
+        "host_us": _host_us(lambda: fa_ops.flash_attention(q, k, v)),
+        "shape": f"B={B} S={S} H={H} KH={KH} D={D} bf16 causal",
+    }
+
+
+def _flash_before(q, k, v):
+    """The earlier CUDA-core flash kernel (now the fp32 variant) on the same
+    bf16 inputs, causal, through the C entry point: timed as before_ms,
+    never counted as a launch."""
+    from repro_torch.kernels.common import DTYPE_CODES
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    (B, S, H, D), KH = q.shape, k.shape[2]
+    out = torch.empty_like(q)
+    err = fa_ops._lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                        B, S, S, H, KH, D, DTYPE_CODES[q.dtype], 1, 0, D ** -0.5,
+                        fa_ops.VARIANTS["fma"], q.device.index,
+                        torch.cuda.current_stream().cuda_stream)
+    assert err == 0, f"flash before: error {err}"
+    return out
+
+
+def _print_attention(arch, r):
+    """One timing line of an attention kernel (flash or decode)."""
+    before = f" (before: {r['before_ms']:.4f})" if "before_ms" in r else ""
+    print(f"[kernels] {r['name']} at {arch}'s {r['shape']}: kernel {r['ms']:.4f} ms{before}, "
+          f"plain {r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms, "
+          f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}); "
+          f"host enqueue {r['host_us']:.1f} us/call")
 
 
 def _attention_rows(arch, gen, flush):
@@ -225,30 +357,11 @@ def _attention_rows(arch, gen, flush):
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.decode_attention import ref as da_ref
-    from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.kernels.flash_attention import ref as fa_ref
 
     cfg = get_config(arch)
     H, KH, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     bf = torch.bfloat16
-    B, S = 1, 64
-    q, k, v = (_randn(gen, B, S, n, D, dtype=bf) for n in (H, KH, KH))
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    pairs = S * (S + 1) // 2
-    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-    bound, by = _bound(nbytes, 4 * B * pairs * H * D)
-    flash = {
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention/kernel.py:90",
-        "ms": _time_ms(lambda: fa_ops.flash_attention(q, k, v), flush),
-        "plain_ms": _time_ms(lambda: fa_ref.mha_reference(q, k, v), flush),
-        "bound_ms": bound, "bound_by": by,
-        "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), flush),
-        "host_us": _host_us(lambda: fa_ops.flash_attention(q, k, v)),
-        "shape": f"B={B} S={S} H={H} KH={KH} D={D} bf16 causal",
-    }
+    flash = _flash_row(arch, 64, gen, flush)
 
     B, S = 8, SERVE_MAX_LEN
     lens = torch.randint(9, 96, (B,), generator=gen, device="cuda", dtype=torch.int32)
@@ -274,6 +387,55 @@ def _attention_rows(arch, gen, flush):
     return flash, decode
 
 
+# granite-moe-3b-a800m's expert products (E=40; gate/up d=1536 -> f=512,
+# down 512 -> 1536) at the decode capacity (C=4 for 8 slots, the first row:
+# the kernels line's) and the prefill buckets' (C=8, 16, 64).
+GMM_TIMED = [(40, c, d, f) for c in (4, 8, 16, 64) for d, f in ((1536, 512), (512, 1536))]
+
+
+def _gmm_row(E, C, d, f, gen, flush):
+    """The grouped matmul timed at (E, C, d, f), bf16, beside its plain
+    version, torch.bmm (timed here only) and the bound."""
+    from repro_torch.kernels.moe_gmm import ops as gmm_ops
+    from repro_torch.kernels.moe_gmm import ref as gmm_ref
+
+    x, w = _randn(gen, E, C, d, dtype=torch.bfloat16), _randn(gen, E, d, f, dtype=torch.bfloat16)
+    bound, by = _bound(2 * (x.numel() + w.numel() + E * C * f), 2 * E * C * d * f)
+    return {"name": "grouped_matmul", "route": "cuda",
+            "source": "src/repro_torch/csrc/moe_gmm.cu",
+            "replaces": "src/repro/kernels/moe_gmm/kernel.py:49",
+            "ms": _time_ms(lambda: gmm_ops.grouped_matmul(x, w), flush),
+            "before_ms": _time_ms(lambda: _gmm_before(x, w), flush),
+            "plain_ms": _time_ms(lambda: gmm_ref.gmm_reference(x, w), flush),
+            "bound_ms": bound, "bound_by": by,
+            "library_ms": _time_ms(lambda: torch.bmm(x, w), flush),
+            "host_us": _host_us(lambda: gmm_ops.grouped_matmul(x, w)),
+            "shape": f"E={E} C={C} d={d} f={f} bf16"}
+
+
+def _gmm_before(x, w):
+    """The earlier CUDA-core grouped matmul (now the fp32 variant) on the
+    same bf16 operands, through the C entry point: timed as before_ms, never
+    counted as a launch."""
+    from repro_torch.kernels.common import DTYPE_CODES
+    from repro_torch.kernels.moe_gmm import ops as gmm_ops
+
+    (E, C, d), f = x.shape, w.shape[2]
+    out = torch.empty((E, C, f), dtype=x.dtype, device=x.device)
+    err = gmm_ops._lib()(x.data_ptr(), w.data_ptr(), out.data_ptr(), E, C, d, f,
+                         DTYPE_CODES[x.dtype], gmm_ops.VARIANTS["fma"], x.device.index,
+                         torch.cuda.current_stream().cuda_stream)
+    assert err == 0, f"gmm before: error {err}"
+    return out
+
+
+def _print_gmm(r):
+    print(f"[kernels] grouped_matmul at {MAIN_ARCH}'s {r['shape']}: kernel "
+          f"{r['ms']:.4f} ms (before: {r['before_ms']:.4f}), plain {r['plain_ms']:.4f} ms, bmm {r['library_ms']:.4f} ms, "
+          f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}); "
+          f"host enqueue {r['host_us']:.1f} us/call")
+
+
 def _gmm_kernel(gen, flush):
     """The grouped matmul against its plain version over the repo's sweep
     (ragged shapes included, and a w that is not 16-byte aligned) and the
@@ -281,12 +443,16 @@ def _gmm_kernel(gen, flush):
     from repro_torch.kernels.moe_gmm import ops as gmm_ops
     from repro_torch.kernels.moe_gmm import ref as gmm_ref
 
-    serving = [(40, c, d, f) for c in (4, 8, 16) for d, f in ((1536, 512), (512, 1536))]
+    serving = [(40, c, d, f) for c in (1, 4, 8, 16, 17, 64) for d, f in ((1536, 512), (512, 1536))]
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
+        # the repo's sweep, ragged d (104: a partial last d tile), a long d
+        # (1024: 32 tiles through the ring), a w that is not 16-byte aligned,
+        # and the served shapes
         cases = [(2, 32, 16, 16, True), (4, 64, 96, 160, True), (8, 128, 128, 128, True),
                  (3, 5, 96, 160, True), (2, 37, 64, 12, True), (2, 16, 8, 12, True),
-                 (4, 64, 96, 160, False)] + [c + (True,) for c in serving]
+                 (3, 17, 104, 136, True), (2, 9, 1024, 72, True), (4, 64, 96, 160, False)] + \
+            [c + (True,) for c in serving]
         for E, C, d, f, aligned in cases:
             x = _randn(gen, E, C, d, dtype=dtype)
             w = _randn(gen, E * d * f + 1, dtype=dtype) * d ** -0.5
@@ -297,35 +463,19 @@ def _gmm_kernel(gen, flush):
             errs[dtype] = max(errs.get(dtype, 0.0), _check(
                 f"gmm {dtype} E={E} C={C} d={d} f={f} aligned={aligned}",
                 out, want, **GMM_TOL[dtype]))
-        print(f"[kernels] grouped_matmul {str(dtype)[6:]}: {len(cases)} cases match the "
-              f"plain version, max abs err {errs[dtype]:.3e}")
+        n_mma = sum(gmm_ops.takes_mma(dtype, d, f, aligned) for _, _, d, f, aligned in cases)
+        print(f"[kernels] grouped_matmul {str(dtype)[6:]}: {len(cases)} cases ({n_mma} on the "
+              f"tensor-core kernel) match the plain version, max abs err {errs[dtype]:.3e}")
 
     # granite-moe-3b-a800m decode: 8 slots -> capacity 4 per expert; the
     # gate/up products (d=1536 -> f=512) are two of each layer's three calls.
-    E, C, d, f = 40, 4, 1536, 512
-    x, w = _randn(gen, E, C, d, dtype=torch.bfloat16), _randn(gen, E, d, f, dtype=torch.bfloat16)
-    bound, by = _bound(2 * (x.numel() + w.numel() + E * C * f), 2 * E * C * d * f)
-    gmm = {"name": "grouped_matmul", "route": "cuda",
-           "source": "src/repro_torch/csrc/moe_gmm.cu",
-           "replaces": "src/repro/kernels/moe_gmm/kernel.py:49",
-           "max_abs_err": max(errs.values()),
-           "ms": _time_ms(lambda: gmm_ops.grouped_matmul(x, w), flush),
-           "plain_ms": _time_ms(lambda: gmm_ref.gmm_reference(x, w), flush),
-           "bound_ms": bound, "bound_by": by,
-           "library_ms": _time_ms(lambda: torch.bmm(x, w), flush),
-           "host_us": _host_us(lambda: gmm_ops.grouped_matmul(x, w)),
-           "shape": f"E={E} C={C} d={d} f={f} bf16"}
-    print(f"[kernels] grouped_matmul at {MAIN_ARCH}'s {gmm['shape']}: kernel "
-          f"{gmm['ms']:.4f} ms, plain {gmm['plain_ms']:.4f} ms, bmm {gmm['library_ms']:.4f} ms, "
-          f"bound {gmm['bound_ms']:.6f} ms ({gmm['bound_by']}); "
-          f"host enqueue {gmm['host_us']:.1f} us/call")
-    # The kernel alone at the path's other shapes: the down product and the
-    # prefill buckets' capacities.
-    sweep = []
-    for E, C, d, f in serving:
-        x, w = _randn(gen, E, C, d, dtype=torch.bfloat16), _randn(gen, E, d, f, dtype=torch.bfloat16)
-        sweep.append(f"C={C},d={d},f={f}:{1e3 * _time_ms(lambda: gmm_ops.grouped_matmul(x, w), flush):.1f}")
-    print(f"[kernels] grouped_matmul bf16 E=40 us by shape: {' '.join(sweep)}")
+    gmm = _gmm_row(40, 4, 1536, 512, gen, flush)
+    gmm["max_abs_err"] = max(errs.values())
+    _print_gmm(gmm)
+    # The path's other shapes: the down product and the prefill buckets'
+    # capacities (C=16 at the 64-token bucket, C=64 at the 256-token one).
+    for E, C, d, f in GMM_TIMED[1:]:
+        _print_gmm(_gmm_row(E, C, d, f, gen, flush))
     return gmm
 
 
@@ -562,8 +712,8 @@ def phase_serve(arch):
     return runs
 
 
-KERNEL_FAMILIES = {"grouped matmul": ("gmm_kernel",),
-                   "attention": ("flash_fwd_kernel", "decode_kernel"),
+KERNEL_FAMILIES = {"grouped matmul": ("gmm_kernel", "gmm_mma_kernel"),
+                   "attention": ("flash_fwd_kernel", "flash_mma_kernel", "decode_kernel"),
                    "ssd scan": ("ssd_scan_kernel",)}
 
 

@@ -193,3 +193,20 @@ def test_onehot_capacity_at_the_serving_shapes(T, want, monkeypatch):
     p = {"router": torch.randn(8, cfg.n_experts, generator=g)}
     mlp.moe_forward_onehot(p, cfg, torch.randn(1, T, 8, generator=g))
     assert seen == [(cfg.n_experts, want, 8)]
+
+
+# ------------------------------------------------------- gmm kernel choice
+_SERVED_GMM = [(40, C, d, f) for C in (1, 4, 16, 17, 64) for d, f in ((1536, 512), (512, 1536))]
+_RAGGED_GMM = [(2, 32, 16, 16), (4, 64, 96, 160), (8, 128, 128, 128), (3, 5, 96, 160),
+               (2, 37, 64, 12), (2, 16, 8, 12), (3, 17, 104, 136), (2, 8, 100, 64)]
+
+
+@pytest.mark.parametrize("E,C,d,f", _SERVED_GMM + _RAGGED_GMM)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_gmm_plan_variant(E, C, d, f, dtype, aligned):
+    """bf16 with d and f multiples of 8 and aligned operands takes the
+    tensor-core kernel (one block per (expert, 64-column f tile), any C);
+    fp32, ragged rows or a misaligned w the CUDA-core kernel."""
+    want = dtype == "bfloat16" and d % 8 == 0 and f % 8 == 0 and aligned
+    assert gmm_ops.takes_mma(_DT[dtype][1], d, f, aligned) == want
