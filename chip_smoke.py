@@ -6,20 +6,27 @@
 Phases; any failure exits non-zero and no phase's failure is caught:
   1. device: the card's name and power limit; build every kernel from
      src/repro_torch/csrc (one nvcc per source, all at once), print each
-     kernel's registers and spills, and check that the two tensor-core
-     kernels' SASS holds HMMA and LDGSTS.
+     kernel's registers and spills, and check the SASS of the bf16 kernels:
+     HMMA and LDGSTS in flash, the grouped matmul and the SSD scan, LDGSTS
+     in split-KV decode.
   2. kernels: each CUDA kernel against its plain PyTorch version on the
      card, at the served models' shapes and ragged ones (attention fp32
      2e-5, bf16 2e-2; grouped matmul fp32 1e-4, bf16 atol 1e-1 / rtol 5e-2;
      SSD scan fp32 1e-4, bf16 x/B/C 2e-2: the repo's kernel tolerances;
-     besides, every bf16 flash row within 1e-2 of its norm against the
-     plain version in fp32), then its median time at each served model's shapes beside the plain
-     version's, one PyTorch call's that computes the same function
+     besides, every bf16 flash row and every bf16 SSD row of y and of the
+     final state within 1e-2 of its norm against the plain version in
+     fp32). Decode's split path is checked at lengths 1, 63, 64, 65, on,
+     beside and across (window 64) a split's boundary, at and past Smax,
+     for Smax 256, 1500 and 4096 and B 1 and 8. Then each kernel's median
+     time at each served model's shapes beside the plain version's, one
+     PyTorch call's that computes the same function
      (scaled_dot_product_attention, torch.bmm: timed here only, the port
-     never calls them; no single call computes the SSD scan) and the least
-     time the card could take (the bound). Flash is timed at S = 64, 256
-     and 2048, the grouped matmul at C = 4, 8, 16 and 64; both beside the
-     earlier CUDA-core kernel on the same bf16 inputs (before_ms).
+     never calls them; no single call computes the SSD scan), the least
+     time the card could take (the bound) and the earlier CUDA-core kernel
+     on the same bf16 inputs (before_ms). Flash is timed at S = 64, 256
+     and 2048, decode at the serving cache (Smax 256) and at Smax 4096
+     with every length full (B 1 and 8), the grouped matmul at C = 4, 8,
+     16 and 64, the SSD scan at S = 64, 256 and 1000.
   3. parity: qwen2-1.5b and granite-moe-3b-a800m at full width cut to 2
      layers, and zamba2-1.2b cut to 12 layers (2 groups of 6 Mamba layers,
      each followed by the shared attention block), fp32, one seeded set of
@@ -38,10 +45,10 @@ Phases; any failure exits non-zero and no phase's failure is caught:
      by kernel; and one profiled zamba2 prefill of a 63-token prompt, the
      only place the SSD kernel runs.
 The line before the last is a JSON object with every kernel's numbers
-(before_ms for the two tensor-core kernels):
-attention and grouped matmul at granite-moe-3b-a800m's shapes with their
-launches from granite's poisson5 run, the SSD scan at zamba2-1.2b's prefill
-shape with its launches from zamba2's poisson5 run; the last line is
+(before_ms: the earlier CUDA-core kernel on the same inputs): attention and
+grouped matmul at granite-moe-3b-a800m's shapes with their launches from
+granite's poisson5 run, the SSD scan at zamba2-1.2b's prefill shape with its
+launches from zamba2's poisson5 run; the last line is
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -69,8 +76,22 @@ GMM_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),      # tests/test_kernels.
 # output's rounding and P's (each 2^-9 relative) leave about 4e-3; an error
 # in the softmax rescale or a dropped KV tile moves a long row far more.
 FLASH_ROW_REL = 1e-2
+# The same for bf16 decode, per (sequence, head) row: P's and the output's
+# rounding leave about as much as in flash. At a long cache the outputs are
+# small (about sqrt(e / len) with randn inputs), so the element tolerance
+# above is about as large as a typical value and lets a split weighted
+# 10-20 % wrong, or a dropped split, pass; the row check does not.
+DECODE_ROW_REL = 1e-2
 SSD_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),      # tests/test_kernels.py
            torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+# The bf16 SSD kernel's rows against the plain version on the same inputs in
+# fp32: ||out - want|| / ||want|| per (b, t, h) row of y over P and per
+# (b, h, p) row of the final state over N. y's rounding to bf16 leaves up to
+# about 4e-3, and the operands the tensor cores take rounded once (the
+# masked scores M, x * w and the state's copy, each 2^-9 relative) about as
+# much again; a wrong decay, a dropped chunk or a lost state read moves a
+# row by far more.
+SSD_ROW_REL = 1e-2
 SERVE_ARCHS = ("qwen2-1.5b", "granite-moe-3b-a800m", "zamba2-1.2b")
 # Each kernel's path: granite's runs attention and the grouped matmul,
 # zamba2's the SSD scan (and attention).
@@ -130,31 +151,35 @@ def _demangle(name):
                               timeout=30).stdout.strip()
     except OSError:
         return name
-    return full.split("(anonymous namespace)::")[-1].split("(")[0] or name
+    full = full.replace("(anonymous namespace)::", "").replace("repro::", "").split("(")[0]
+    return full.removeprefix("void ") or name
 
 
-# The bf16 kernels must run on the tensor cores (HMMA) and stage their tiles
-# with asynchronous copies (LDGSTS).
-TENSOR_CORE_KERNELS = {"moe_gmm": "gmm_mma_kernel", "flash_attention": "flash_mma_kernel"}
+# The bf16 kernels must stage their tiles with asynchronous copies (LDGSTS),
+# and those built on the tensor cores must run there (HMMA).
+SASS_CHECKS = {"moe_gmm": ("gmm_mma_kernel", ("HMMA", "LDGSTS")),
+               "flash_attention": ("flash_mma_kernel", ("HMMA", "LDGSTS")),
+               "mamba_scan": ("ssd_mma_kernel", ("HMMA", "LDGSTS")),
+               "decode_attention": ("decode_split_kernel", ("LDGSTS",))}
 
 
 def _sass_check(libs):
-    """Count HMMA and LDGSTS instructions in each tensor-core kernel's SASS
-    (cuobjdump of the built library); fail if either is missing."""
+    """Count the named instructions in each bf16 kernel's SASS (cuobjdump of
+    the built library); fail if any instantiation lacks one."""
     from repro_torch.kernels import build
     cuobjdump = Path(build.nvcc()).with_name("cuobjdump")
-    for lib, kernel in TENSOR_CORE_KERNELS.items():
+    for lib, (kernel, ops) in SASS_CHECKS.items():
         sass = subprocess.run([str(cuobjdump), "-sass", str(libs[lib])], capture_output=True,
                               text=True, check=True, timeout=300).stdout
         counts = {}
         for fn in sass.split("Function : ")[1:]:
             name = fn.split(None, 1)[0]
             if kernel in name:
-                counts[name] = (fn.count("HMMA"), fn.count("LDGSTS"))
-        assert counts and all(h and g for h, g in counts.values()), \
-            f"{kernel}: instantiations without HMMA or LDGSTS: {counts}"
-        print(f"[build] {kernel}: {len(counts)} instantiations, HMMA/LDGSTS per instantiation "
-              + " ".join(f"{h}/{g}" for h, g in counts.values()))
+                counts[name] = tuple(fn.count(op) for op in ops)
+        assert counts and all(all(c) for c in counts.values()), \
+            f"{kernel}: instantiations without {'/'.join(ops)}: {counts}"
+        print(f"[build] {kernel}: {len(counts)} instantiations, {'/'.join(ops)} per instantiation "
+              + " ".join("/".join(map(str, c)) for c in counts.values()))
 
 
 # ---------------------------------------------------------------- phase 2
@@ -214,7 +239,7 @@ def phase_kernels():
     from repro_torch.kernels.flash_attention import ref as fa_ref
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    flash_err = decode_err = flash_rel = 0.0
+    flash_err = decode_err = flash_rel = decode_rel = 0.0
     n_flash = n_decode = 0
     for dtype in (torch.float32, torch.bfloat16):
         # qwen2-1.5b's head layout (H=12, KH=2, D=128), granite-moe-3b-a800m's
@@ -262,13 +287,17 @@ def phase_kernels():
                 out = da_ops.decode_attention(q, kc, vc, lens, window=window)
                 want = da_ref.decode_attention_reference(q, kc, vc, lens, window=window)
                 torch.cuda.synchronize()
-                decode_err = max(decode_err, _check(
-                    f"decode {dtype} B={B} H={H} KH={KH} D={D} Smax={S} window={window}",
-                    out, want, **TOL[dtype]))
+                what = f"decode {dtype} B={B} H={H} KH={KH} D={D} Smax={S} window={window}"
+                decode_err = max(decode_err, _check(what, out, want, **TOL[dtype]))
+                if dtype == torch.bfloat16:
+                    decode_rel = max(decode_rel, _decode_row_check(what, out, q, kc, vc, lens,
+                                                                   window))
                 n_decode += 1
     print(f"[kernels] flash: {n_flash} cases match the plain version, max abs err {flash_err:.3e}; "
           f"bf16 rows within {flash_rel:.3e} of the fp32 plain version's norm")
-    print(f"[kernels] decode: {n_decode} cases match the plain version, max abs err {decode_err:.3e}")
+    print(f"[kernels] decode: {n_decode} cases match the plain version, max abs err {decode_err:.3e}; "
+          f"bf16 rows within {decode_rel:.3e} of the fp32 plain version's norm")
+    decode_err = max(decode_err, _decode_split_cases(gen))
 
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
     rows = {arch: _attention_rows(arch, gen, flush) for arch in SERVE_ARCHS}
@@ -279,6 +308,12 @@ def phase_kernels():
     for arch in SERVE_ARCHS:
         for S in FLASH_TIMED_S[1:]:
             _print_attention(arch, _flash_row(arch, S, gen, flush))
+    # Decode alone over a long cache, every length full.
+    for arch in SERVE_ARCHS:
+        for B in (1, 8):
+            S = DECODE_LONG_S
+            lens = torch.full((B,), S, dtype=torch.int32, device="cuda")
+            _print_attention(arch, _decode_row(arch, B, S, lens, gen, flush))
     # The kernels line reports attention at granite's shapes: the path whose
     # attention launches are counted below.
     flash, decode = rows[MAIN_ARCH]
@@ -287,6 +322,155 @@ def phase_kernels():
 
 
 FLASH_TIMED_S = (64, 256, 2048)   # the 64-token bucket, a longer one, a long prompt
+DECODE_LONG_S = 4096              # a long cache, timed at B = 1 and 8
+
+
+def _decode_row_check(what, out, q, kc, vc, lens, window):
+    """bf16 decode's rows against the plain version in fp32 on the same
+    inputs, within DECODE_ROW_REL of each row's norm; returns the largest."""
+    from repro_torch.kernels.decode_attention import ref as da_ref
+
+    rel = _row_rel(out, da_ref.decode_attention_reference(
+        q.float(), kc.float(), vc.float(), lens, window=window))
+    assert rel <= DECODE_ROW_REL, \
+        f"{what}: row error {rel:.3e} exceeds {DECODE_ROW_REL} of the row's norm"
+    return rel
+
+
+def _decode_split_inputs(gen, sms):
+    """The split path's cases: (what, dtype, splits, q, kc, vc, lens, window)
+    at lengths 1, 63, 64, 65, on and beside a split's boundary, across it
+    with window 64, at and past Smax; Smax 256, 1500 and 4096; B 1 and 8;
+    each model's heads; fp32 then bf16."""
+    from repro_torch.kernels.common import cdiv
+    from repro_torch.kernels.decode_attention import ops as da_ops
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, H, KH, D, S in ((1, 12, 2, 128, 4096), (8, 12, 2, 128, 4096),
+                               (1, 24, 8, 64, 1500), (8, 24, 8, 64, 1500),
+                               (1, 32, 32, 64, 4096), (8, 24, 8, 64, 256),
+                               (8, 12, 2, 128, 256), (2, 6, 6, 32, 1500)):
+            splits = da_ops.split_count(B, KH, S, sms)
+            span = cdiv(cdiv(S, da_ops.SPAN_UNIT), splits) * da_ops.SPAN_UNIT
+            edges = sorted({e for e in (1, 63, 64, 65, span - 1, span, span + 1, span + 30,
+                                        S - 1, S, S + 5) if e >= 1})
+            groups = [[e] for e in edges] if B == 1 else \
+                [(edges * B)[i:i + B] for i in range(0, len(edges), B)]
+            q = _randn(gen, B, H, D, dtype=dtype)
+            kc = _randn(gen, B, S, KH, D, dtype=dtype)
+            vc = _randn(gen, B, S, KH, D, dtype=dtype)
+            for lens in groups:
+                lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
+                for window in (0, 64):
+                    yield (f"decode {dtype} B={B} H={H} KH={KH} D={D} Smax={S} splits={splits} "
+                           f"lens={lens.tolist()} window={window}",
+                           dtype, splits, q, kc, vc, lens, window)
+
+
+def _decode_split_cases(gen):
+    """Decode attention at the split path's edges (_decode_split_inputs)
+    against the plain version (bf16: the split-KV kernel; fp32: the
+    one-block kernel, same shapes); bf16 rows also pass _decode_row_check.
+    Then two streams run split calls at once, each with its own counters.
+    Returns the largest abs error."""
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.decode_attention import ref as da_ref
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    err, rel, n, splits_seen = 0.0, 0.0, 0, set()
+    for what, dtype, splits, q, kc, vc, lens, window in _decode_split_inputs(gen, sms):
+        out = da_ops.decode_attention(q, kc, vc, lens, window=window)
+        want = da_ref.decode_attention_reference(q, kc, vc, lens, window=window)
+        torch.cuda.synchronize()
+        err = max(err, _check(what, out, want, **TOL[dtype]))
+        if dtype == torch.bfloat16:
+            rel = max(rel, _decode_row_check(what, out, q, kc, vc, lens, window))
+        n += 1
+        splits_seen.add(splits)
+    print(f"[kernels] decode split path: {n} cases (splits {sorted(splits_seen)}) match the "
+          f"plain version, max abs err {err:.3e}; bf16 rows within {rel:.3e} of the fp32 "
+          f"plain version's norm")
+
+    # Two streams, each queueing split calls over the same (sequence, KV
+    # head) pairs behind a spin, so that their blocks run at once. Its own
+    # generator leaves the later phases' inputs as they were.
+    B, H, KH, D, S = 8, 24, 8, 64, 4096
+    assert da_ops.split_count(B, KH, S, sms) > 1
+    g2 = torch.Generator(device="cuda").manual_seed(1)
+    q = _randn(g2, B, H, D, dtype=torch.bfloat16)
+    kc, vc = (_randn(g2, B, S, KH, D, dtype=torch.bfloat16) for _ in range(2))
+    lens = torch.randint(1, S + 1, (B,), generator=g2, device="cuda", dtype=torch.int32)
+    want = da_ref.decode_attention_reference(q, kc, vc, lens)
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    torch.cuda.synchronize()
+    for st in streams:
+        with torch.cuda.stream(st):
+            torch.cuda._sleep(5_000_000)
+    outs = []
+    for _ in range(8):
+        for st in streams:
+            with torch.cuda.stream(st):
+                outs.append(da_ops.decode_attention(q, kc, vc, lens))
+    torch.cuda.synchronize()
+    for i, got in enumerate(outs):
+        err = max(err, _check(f"decode on two streams, call {i}", got, want, **TOL[torch.bfloat16]))
+        assert torch.equal(got, outs[0]), f"decode on two streams, call {i}: not bit for bit"
+    _decode_row_check("decode on two streams", outs[0], q, kc, vc, lens, 0)
+    print(f"[kernels] decode split path on two streams at once: {len(outs)} calls match the "
+          f"plain version, bit for bit alike")
+    return err
+
+
+def _decode_before(q, kc, vc, lens):
+    """The earlier one-block decode kernel (now the fp32 variant) on the same
+    bf16 inputs, through the C entry point: timed as before_ms, never
+    counted as a launch."""
+    from repro_torch.kernels.common import DTYPE_CODES
+    from repro_torch.kernels.decode_attention import ops as da_ops
+
+    (B, H, D), (Smax, KH) = q.shape, kc.shape[1:3]
+    out = torch.empty_like(q)
+    err = da_ops._lib()(q.data_ptr(), kc.data_ptr(), vc.data_ptr(), lens.data_ptr(),
+                        out.data_ptr(), None, None, B, Smax, H, KH, D, DTYPE_CODES[q.dtype],
+                        0, D ** -0.5, 1, da_ops.VARIANTS["fma"], q.device.index,
+                        torch.cuda.current_stream().cuda_stream)
+    assert err == 0, f"decode before: error {err}"
+    return out
+
+
+def _decode_row(arch, B, S, lens, gen, flush):
+    """Decode attention timed at ``arch``'s heads over a (B, S) cache with
+    ``lens``, bf16, beside the earlier kernel (before_ms), its plain
+    version, scaled_dot_product_attention (timed here only) and the bound:
+    q and the live K/V read once, the output written once."""
+    import torch.nn.functional as F
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.decode_attention import ref as da_ref
+
+    cfg = get_config(arch)
+    H, KH, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    q = _randn(gen, B, H, D, dtype=torch.bfloat16)
+    kc, vc = (_randn(gen, B, S, KH, D, dtype=torch.bfloat16) for _ in range(2))
+    qs, ks, vs = q[:, :, None], kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
+    mask = (torch.arange(S, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
+    live = int(lens.clamp(max=S).sum())
+    nbytes = 2 * (2 * q.numel() + 2 * live * KH * D) + 4 * B
+    bound, by = _bound(nbytes, 4 * live * H * D)
+    splits = da_ops.split_count(B, KH, S, torch.cuda.get_device_properties(0).multi_processor_count)
+    return {
+        "name": "decode_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention/kernel.py:79",
+        "ms": _time_ms(lambda: da_ops.decode_attention(q, kc, vc, lens), flush),
+        "before_ms": _time_ms(lambda: _decode_before(q, kc, vc, lens), flush),
+        "plain_ms": _time_ms(lambda: da_ref.decode_attention_reference(q, kc, vc, lens), flush),
+        "bound_ms": bound, "bound_by": by,
+        "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask, enable_gqa=True), flush),
+        "host_us": _host_us(lambda: da_ops.decode_attention(q, kc, vc, lens)),
+        "shape": f"B={B} Smax={S} H={H} KH={KH} D={D} bf16 sum(len)={live} splits={splits}",
+    }
 
 
 def _flash_row(arch, S, gen, flush):
@@ -353,38 +537,11 @@ def _attention_rows(arch, gen, flush):
     the 8-slot, 256-position cache with lengths in the path's range (prompt
     + up to 31 generated tokens). Beside each kernel: its plain version,
     scaled_dot_product_attention (timed here only) and the bound."""
-    import torch.nn.functional as F
-    from repro_torch.configs.registry import get_config
-    from repro_torch.kernels.decode_attention import ops as da_ops
-    from repro_torch.kernels.decode_attention import ref as da_ref
-
-    cfg = get_config(arch)
-    H, KH, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    bf = torch.bfloat16
     flash = _flash_row(arch, 64, gen, flush)
 
     B, S = 8, SERVE_MAX_LEN
     lens = torch.randint(9, 96, (B,), generator=gen, device="cuda", dtype=torch.int32)
-    q = _randn(gen, B, H, D, dtype=bf)
-    kc, vc = (_randn(gen, B, S, KH, D, dtype=bf) for _ in range(2))
-    qs, ks, vs = q[:, :, None], kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
-    mask = (torch.arange(S, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
-    live = int(lens.clamp(max=S).sum())
-    nbytes = 2 * (2 * q.numel() + 2 * live * KH * D) + 4 * B
-    bound, by = _bound(nbytes, 4 * live * H * D)
-    decode = {
-        "name": "decode_attention", "route": "cuda",
-        "source": "src/repro_torch/csrc/decode_attention.cu",
-        "replaces": "src/repro/kernels/decode_attention/kernel.py:79",
-        "ms": _time_ms(lambda: da_ops.decode_attention(q, kc, vc, lens), flush),
-        "plain_ms": _time_ms(lambda: da_ref.decode_attention_reference(q, kc, vc, lens), flush),
-        "bound_ms": bound, "bound_by": by,
-        "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(
-            qs, ks, vs, attn_mask=mask, enable_gqa=True), flush),
-        "host_us": _host_us(lambda: da_ops.decode_attention(q, kc, vc, lens)),
-        "shape": f"B={B} Smax={S} H={H} KH={KH} D={D} bf16 sum(len)={live}",
-    }
-    return flash, decode
+    return flash, _decode_row(arch, B, S, lens, gen, flush)
 
 
 # granite-moe-3b-a800m's expert products (E=40; gate/up d=1536 -> f=512,
@@ -517,10 +674,14 @@ def _ssd_kernel(gen, flush):
     from repro_torch.kernels.mamba_scan import ops as ms_ops
     from repro_torch.kernels.mamba_scan import ref as ms_ref
 
-    errs = {}
+    errs, rel = {}, 0.0
     for dtype in (torch.float32, torch.bfloat16):
-        n = 0
-        for H, P, N in ((2, 16, 16), (3, 16, 32), (1, 64, 64), (2, 24, 32), (64, 64, 64)):
+        n = n_mma = 0
+        # the test sweep's (H, P, N), P = 24 and 12 (which 16 does not
+        # divide; 12 takes the CUDA-core kernel in bf16 too), N = 128, and
+        # zamba2's (64, 64, 64)
+        for H, P, N in ((2, 16, 16), (3, 16, 32), (1, 64, 64), (2, 24, 32), (2, 12, 16),
+                        (2, 32, 128), (64, 64, 64)):
             for S in (1, 8, 63, 64, 100, 128, 200, 1000):
                 for B in (1, 3):
                     args = _ssd_inputs(gen, B, S, H, P, N, dtype, init=B == 3)
@@ -531,6 +692,16 @@ def _ssd_kernel(gen, flush):
                     errs[dtype] = max(errs.get(dtype, 0.0),
                                       _check(what + " y", y, yw, **SSD_TOL[dtype]),
                                       _check(what + " state", st, sw, **SSD_TOL[dtype]))
+                    if dtype == torch.bfloat16:
+                        x, dt, A, Bm, Cm, D, s0 = args
+                        y32, s32 = ms_ref.ssd_chunked_reference(x.float(), dt, A, Bm.float(),
+                                                                Cm.float(), D, s0)
+                        ry, rs = _row_rel(y, y32), _row_rel(st, s32)
+                        r = max(ry, rs)
+                        assert r <= SSD_ROW_REL, (f"{what}: row error {ry:.3e} (y), {rs:.3e} "
+                                                  f"(state) exceeds {SSD_ROW_REL} of the row's norm")
+                        rel = max(rel, r)
+                    n_mma += ms_ops.takes_mma(args[0], args[3], args[4])
                     n += 1
         # the model's layout: x, B and C are column slices of one conv buffer
         H, P, N = 64, 64, 64
@@ -545,8 +716,10 @@ def _ssd_kernel(gen, flush):
                               _check(f"ssd {dtype} strided S={S} y", y, yw, **SSD_TOL[dtype]),
                               _check(f"ssd {dtype} strided S={S} state", st, sw, **SSD_TOL[dtype]))
             n += 1
-        print(f"[kernels] ssd_scan {str(dtype)[6:]}: {n} cases match the plain version "
-              f"(y and final state), max abs err {errs[dtype]:.3e}")
+        print(f"[kernels] ssd_scan {str(dtype)[6:]}: {n} cases ({n_mma} on the tensor-core "
+              f"kernel) match the plain version (y and final state), max abs err "
+              f"{errs[dtype]:.3e}" + (f"; rows within {rel:.3e} of the fp32 plain version's norm"
+                                      if dtype == torch.bfloat16 else ""))
 
     cfg = get_config(SSD_ARCH)
     H, P, N = cfg.ssm_nheads, cfg.ssm_head_dim, cfg.ssm_state
@@ -558,21 +731,45 @@ def _ssd_kernel(gen, flush):
            "replaces": "src/repro/kernels/mamba_scan/kernel.py:79",
            "max_abs_err": max(errs.values()),
            "ms": _time_ms(lambda: ms_ops.ssd_scan(*args, with_state=True), flush),
+           "before_ms": _time_ms(lambda: _ssd_before(*args), flush),
            "plain_ms": _time_ms(lambda: ms_ref.ssd_chunked_reference(*args), flush),
            "bound_ms": bound, "bound_by": by, "library_ms": None,
            "host_us": _host_us(lambda: ms_ops.ssd_scan(*args, with_state=True)),
            "shape": f"B={B} S={S} H={H} P={P} N={N} bf16 x/B/C"}
-    print(f"[kernels] ssd_scan at {SSD_ARCH}'s {ssd['shape']}: kernel {ssd['ms']:.4f} ms, "
-          f"plain {ssd['plain_ms']:.4f} ms, no library call, bound {ssd['bound_ms']:.6f} ms "
-          f"({ssd['bound_by']}, fp32 rate); host enqueue {ssd['host_us']:.1f} us/call")
+    print(f"[kernels] ssd_scan at {SSD_ARCH}'s {ssd['shape']}: kernel {ssd['ms']:.4f} ms "
+          f"(before: {ssd['before_ms']:.4f}), plain {ssd['plain_ms']:.4f} ms, no library call, "
+          f"bound {ssd['bound_ms']:.6f} ms ({ssd['bound_by']}, fp32 rate); "
+          f"host enqueue {ssd['host_us']:.1f} us/call")
     sweep = []
     for S in (256, 1000):
         args = _ssd_inputs(gen, B, S, H, P, N, torch.bfloat16)
         b_ms, b_by = _bound(*_ssd_cost(B, S, H, P, N, 2, False), flop_rate=FP32_FLOP_PER_S)
         sweep.append(f"S={S}: {_time_ms(lambda: ms_ops.ssd_scan(*args, with_state=True), flush):.4f} ms "
-                     f"(bound {b_ms:.6f}, {b_by})")
+                     f"(before: {_time_ms(lambda: _ssd_before(*args), flush):.4f}; "
+                     f"bound {b_ms:.6f}, {b_by})")
     print(f"[kernels] ssd_scan alone at B=1 H={H} P={P} N={N} bf16: {'; '.join(sweep)}")
     return ssd
+
+
+def _ssd_before(x, dt, A, Bm, Cm, D, init):
+    """The earlier CUDA-core SSD kernel (now the fp32 variant) on the same
+    bf16 inputs, through the C entry point: timed as before_ms, never
+    counted as a launch."""
+    from repro_torch.kernels.common import DTYPE_CODES
+    from repro_torch.kernels.mamba_scan import ops as ms_ops
+
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    y = torch.empty_like(x)
+    final = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+    err = ms_ops._lib()(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+                        D.data_ptr(), None if init is None else init.data_ptr(), y.data_ptr(),
+                        final.data_ptr(), Bsz, S, H, P, N, x.stride(0), x.stride(1),
+                        dt.stride(0), dt.stride(1), Bm.stride(0), Bm.stride(1), Cm.stride(0),
+                        Cm.stride(1), DTYPE_CODES[x.dtype], ms_ops.VARIANTS["fma"],
+                        x.device.index, torch.cuda.current_stream().cuda_stream)
+    assert err == 0, f"ssd before: error {err}"
+    return y, final
 
 
 # ---------------------------------------------------------------- phase 3
@@ -713,8 +910,9 @@ def phase_serve(arch):
 
 
 KERNEL_FAMILIES = {"grouped matmul": ("gmm_kernel", "gmm_mma_kernel"),
-                   "attention": ("flash_fwd_kernel", "flash_mma_kernel", "decode_kernel"),
-                   "ssd scan": ("ssd_scan_kernel",)}
+                   "attention": ("flash_fwd_kernel", "flash_mma_kernel", "decode_kernel",
+                                 "decode_split_kernel"),
+                   "ssd scan": ("ssd_scan_kernel", "ssd_mma_kernel")}
 
 
 def _profiled(what, fn, calls):

@@ -37,6 +37,7 @@ __device__ __forceinline__ float warp_sum(float x) {
 }
 
 inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+__host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
 
 // ------------------------------------------------------------------------
 // The online-softmax step both attention kernels share. A block of

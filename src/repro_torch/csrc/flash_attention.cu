@@ -128,17 +128,9 @@ constexpr int kFW = 4;                  // warps per block, 16 (query, head) row
 constexpr int kBM = 16 * kFW;           // rows per block
 constexpr int kKT = 64;                 // keys per K/V tile
 constexpr int kKVStages = 2;            // K/V tiles in the ring
-constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D>
 constexpr int mma_smem_bytes() { return (kBM + 2 * kKVStages * kKT) * D * 2; }   // Q, K, V
-
-// 2^x (MUFU.EX2; flushes subnormal results to zero).
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // Block (row tile, KV head kh, batch b): rows r = R0 .. R0 + kBM - 1 of the
 // Sq * G (query, head) pairs of kh, r = query * G + (h - kh * G).

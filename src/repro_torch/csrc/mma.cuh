@@ -1,6 +1,7 @@
 // Tensor-core and asynchronous-copy building blocks for the bf16 kernels,
 // sm_90a: cp.async with zero fill, ldmatrix and mma.sync m16n8k16 (bf16
-// inputs, fp32 accumulation), and the shared-memory swizzle their tiles use.
+// inputs, fp32 accumulation), m16n8k8 in TF32, and the shared-memory
+// swizzle their tiles use.
 // Plain C interface users only: no PyTorch headers.
 #pragma once
 
@@ -60,6 +61,15 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x (MUFU.EX2; flushes subnormal results to zero).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // Two fp32 values as one bf16x2 register (x in the low half), each rounded
 // to nearest even.
 __device__ __forceinline__ uint32_t pack_bf16(float x, float y) {
@@ -71,11 +81,41 @@ __device__ __forceinline__ uint32_t pack_bf16(float x, float y) {
 // such chunks. The chunk index is XORed with bits of the row so that the 8
 // rows one ldmatrix reads at one logical chunk land in 8 different bank
 // groups, conflict-free: rows of >= 128 bytes (CH >= 8) take r % 8, rows of
-// 64 bytes (CH == 4, two rows per 128-byte line) take (r / 2) % 4.
+// 64 bytes (CH == 4, two rows per 128-byte line) take (r / 2) % 4, rows of
+// 32 bytes (CH == 2, four rows per line) take (r / 4) % 2.
 template <int CH>
 __device__ __forceinline__ int swz(int r, int c) {
-  static_assert(CH == 4 || CH % 8 == 0, "rows of 64 bytes or a multiple of 128");
-  return r * CH * 8 + ((CH >= 8 ? (c ^ (r & 7)) : (c ^ ((r >> 1) & 3))) * 8);
+  static_assert(CH == 2 || CH == 4 || CH % 8 == 0, "rows of 32 or 64 bytes or a multiple of 128");
+  const int x = CH >= 8 ? (r & 7) : CH == 4 ? ((r >> 1) & 3) : ((r >> 2) & 1);
+  return r * CH * 8 + (c ^ x) * 8;
+}
+
+// 4 bytes from global to shared memory, asynchronously; zero-filled when
+// `valid` is false (`src` must still be a mapped address).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(s), "l"(src), "r"(valid ? 4 : 0) : "memory");
+}
+
+// c += a (16x8) * b (8x8) in TF32 (m16n8k8), fp32 accumulation. Fragments
+// (g = lane / 4, q = lane % 4): a[0] = A[g][q], a[1] = A[g+8][q],
+// a[2] = A[g][q+4], a[3] = A[g+8][q+4]; b0 = B[q][g], b1 = B[q+4][g]; c as
+// for mma_bf16. Each operand is an fp32 bit pattern rounded by to_tf32.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// fp32 rounded to TF32 (nearest, ties away from zero), as mma_tf32 takes it.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t y;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(y) : "f"(x));
+  return y;
 }
 
 }  // namespace repro

@@ -1,8 +1,13 @@
 """Public decode-attention entry point (inference only).
 
-A CUDA tensor goes to the hand-written kernel (``csrc/decode_attention.cu``)
+A CUDA tensor goes to a hand-written kernel (``csrc/decode_attention.cu``)
 or the call raises; a CPU tensor goes to the plain version in ``ref.py``.
 ``decode_attention.launches`` counts kernel launches, and nothing else.
+
+bf16 goes to the split-KV kernel: ``split_count`` picks its splits per
+(sequence, KV head) on the host from B, KH and Smax alone; fp32 to the
+CUDA-core kernel of one block per (sequence, KV head), which keeps the fp32
+sweeps' 2e-5.
 """
 from __future__ import annotations
 
@@ -12,19 +17,57 @@ from functools import lru_cache
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import (DTYPE_CODES, HEAD_DIMS, check_aligned,
+from repro_torch.kernels.common import (DTYPE_CODES, HEAD_DIMS, cdiv, check_aligned,
                                         check_launch, check_operands, kernel_route)
 from repro_torch.kernels.decode_attention import ref as _ref
 
 MAX_GROUP = 16   # query heads per KV head the kernel keeps in one block
+VARIANTS = {"fma": 0, "split": 1}   # the C entry point's `variant`
+SPAN_UNIT = _ref.SPAN_UNIT          # kSpanUnit in csrc/decode_attention.cu
+MIN_UNITS_PER_SPLIT = 4             # 256 keys: shorter splits cost more than they save
+MAX_SPLITS = 256                    # kMaxSplits in csrc/decode_attention.cu
+
+
+def split_count(B: int, KH: int, Smax: int, sms: int) -> int:
+    """Splits per (sequence, KV head) of the bf16 kernel, from the shapes
+    alone (the lengths stay on the device): enough that B * KH * splits
+    covers ``sms`` SMs, but no split shorter than MIN_UNITS_PER_SPLIT
+    64-key units (so the serving path's 256-key cache takes one split), at
+    most MAX_SPLITS, and never so many that a split's span holds no unit
+    of the cache."""
+    units = cdiv(Smax, SPAN_UNIT)
+    per = max(MIN_UNITS_PER_SPLIT, units // cdiv(sms, B * KH), cdiv(units, MAX_SPLITS))
+    return cdiv(units, per)
+
+
+@lru_cache(None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_COUNTERS: dict = {}
+
+
+def _counters(device, stream: int, n: int) -> torch.Tensor:
+    """The split kernel's per-(sequence, KV head) arrival counters for
+    launches on ``stream`` (a raw stream handle) of ``device``: zeroed once
+    when allocated, and left at zero by every launch (its last block resets
+    them), so no call needs a memset. Launches on one stream run in order,
+    so they never share a counter at the same time; launches on two streams
+    may overlap, so each stream has its own buffer."""
+    key = (device, stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _COUNTERS[key] = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+    return buf
 
 
 @lru_cache(None)
 def _lib():
     lib = build.load("decode_attention")
     fn = lib.repro_decode_attention
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + \
-        [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + \
+        [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -59,11 +102,23 @@ def decode_attention(q, k_cache, v_cache, lengths, *, scale=None, window=0):
                          f"or B={B} > 65535")
     check_aligned("decode_attention", q, k_cache, v_cache)
     out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    work = cnt = None
+    splits = 1
+    if q.dtype == torch.bfloat16:
+        splits = split_count(B, KH, Smax, _sm_count(q.device.index))
+        if splits > 1:   # each split's (acc, m, l) per query head
+            work = torch.empty(B * KH * splits * (H // KH) * (D + 2), dtype=torch.float32,
+                               device=q.device)
+            cnt = _counters(q.device, stream, B * KH)
     err = _lib()(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                 lengths.data_ptr(), out.data_ptr(), B, Smax, H, KH, D,
+                 lengths.data_ptr(), out.data_ptr(),
+                 None if work is None else work.data_ptr(),
+                 None if cnt is None else cnt.data_ptr(), B, Smax, H, KH, D,
                  DTYPE_CODES[q.dtype], int(window),
-                 scale if scale is not None else D ** -0.5, q.device.index,
-                 torch.cuda.current_stream(q.device).cuda_stream)
+                 scale if scale is not None else D ** -0.5, splits,
+                 VARIANTS["split" if q.dtype == torch.bfloat16 else "fma"],
+                 q.device.index, stream)
     check_launch(err, "decode_attention kernel launch")
     decode_attention.launches += 1
     return out

@@ -1,9 +1,12 @@
 """Public entry points of the Mamba2 SSD scan (inference only).
 
-``ssd_scan``: a CUDA tensor goes to the hand-written kernel
+``ssd_scan``: a CUDA tensor goes to a hand-written kernel
 (``csrc/mamba_scan.cu``) or the call raises; a CPU tensor goes to the plain
 chunked version in ``ref.py``. ``ssd_scan.launches`` counts kernel launches,
-and nothing else. ``decode_step`` is the one-token recurrence, plain torch
+and nothing else. bf16 x/B/C go to the tensor-core kernel where
+``takes_mma`` holds (P and the strides of x, B and C multiples of 8, the
+operands 16-byte aligned, as the model's conv-buffer slices are); fp32, and
+bf16 operands it does not take, to the CUDA-core kernel. ``decode_step`` is the one-token recurrence, plain torch
 as in the JAX package (which has no kernel for it).
 """
 from __future__ import annotations
@@ -19,6 +22,15 @@ from repro_torch.kernels.common import (DTYPE_CODES, check_launch,
 from repro_torch.kernels.mamba_scan import ref as _ref
 
 STATE_DIMS = (16, 32, 64, 128)   # N the CUDA kernel is instantiated for
+VARIANTS = {"fma": 0, "mma": 1}   # the C entry point's `variant`
+
+
+def takes_mma(x, Bmat, Cmat) -> bool:
+    """Whether the bf16 tensor-core kernel takes these operands: it stages
+    rows of x, B and C in 16-byte pieces."""
+    return (x.dtype == torch.bfloat16 and x.shape[-1] % 8 == 0
+            and all(t.stride(i) % 8 == 0 for t in (x, Bmat, Cmat) for i in (0, 1))
+            and all(t.data_ptr() % 16 == 0 for t in (x, Bmat, Cmat)))
 
 
 @lru_cache(None)
@@ -26,7 +38,7 @@ def _lib():
     lib = build.load("mamba_scan")
     fn = lib.repro_ssd_scan
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + \
-        [ctypes.c_int64] * 8 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        [ctypes.c_int64] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -74,7 +86,8 @@ def ssd_scan(x, dt, A, Bmat, Cmat, D, init_state=None, *, with_state=False):
                  y.data_ptr(), final.data_ptr(), Bsz, S, H, P, N,
                  x.stride(0), x.stride(1), dt.stride(0), dt.stride(1),
                  Bmat.stride(0), Bmat.stride(1), Cmat.stride(0), Cmat.stride(1),
-                 DTYPE_CODES[x.dtype], x.device.index,
+                 DTYPE_CODES[x.dtype],
+                 VARIANTS["mma" if takes_mma(x, Bmat, Cmat) else "fma"], x.device.index,
                  torch.cuda.current_stream(x.device).cuda_stream)
     check_launch(err, "ssd_scan kernel launch")
     ssd_scan.launches += 1
