@@ -15,35 +15,50 @@ Phases; any failure exits non-zero and no phase's failure is caught:
      SSD scan fp32 1e-4, bf16 x/B/C 2e-2: the repo's kernel tolerances;
      besides, every bf16 flash row and every bf16 SSD row of y and of the
      final state within 1e-2 of its norm against the plain version in
-     fp32). Decode's split path is checked at lengths 1, 63, 64, 65, on,
-     beside and across (window 64) a split's boundary, at and past Smax,
-     for Smax 256, 1500 and 4096 and B 1 and 8. Then each kernel's median
-     time at each served model's shapes beside the plain version's, one
-     PyTorch call's that computes the same function
+     fp32). Flash also at glm4-9b's heads (16 query heads per KV head,
+     D=128) and at whisper-base's (H=KH=8, D=64) without causality at
+     Sq = Sk = 1500 and Sq = 1, 16, 64 against Sk = 1500. Decode's split
+     path is checked at lengths 1, 63, 64, 65, on, beside and across
+     (window 64) a split's boundary, at and past Smax, for Smax 256, 1500
+     and 4096 and B 1 and 8, glm4-9b's heads among them, and at
+     whisper-base's cross cache (Smax 1500, every length 1500). Then each
+     kernel's median time at each served model's shapes beside the plain
+     version's, one PyTorch call's that computes the same function
      (scaled_dot_product_attention, torch.bmm: timed here only, the port
      never calls them; no single call computes the SSD scan), the least
      time the card could take (the bound) and the earlier CUDA-core kernel
      on the same bf16 inputs (before_ms). Flash is timed at S = 64, 256
-     and 2048, decode at the serving cache (Smax 256) and at Smax 4096
-     with every length full (B 1 and 8), the grouped matmul at C = 4, 8,
-     16 and 64, the SSD scan at S = 64, 256 and 1000.
-  3. parity: qwen2-1.5b and granite-moe-3b-a800m at full width cut to 2
-     layers, and zamba2-1.2b cut to 12 layers (2 groups of 6 Mamba layers,
-     each followed by the shared attention block), fp32, one seeded set of
+     and 2048 and at whisper-base's encoder (B=8, S=1500, no causal mask),
+     decode at the serving cache (Smax 256; glm4-9b's B=4, Smax 128), at
+     Smax 4096 with every length full (B 1 and 8) and at whisper-base's
+     cross cache (B=8, Smax 1500, 3 splits), the grouped matmul at C = 4,
+     8, 16 and 64, the SSD scan at S = 64, 256 and 1000.
+  3. parity: qwen2-1.5b, granite-moe-3b-a800m, qwen2-vl-2b (256 vision
+     tokens) and glm4-9b at full width cut to 2 layers, whisper-base cut
+     to 2 encoder and 2 decoder layers over its 1500 frames, and
+     zamba2-1.2b cut to 12 layers (2 groups of 6 Mamba layers, each
+     followed by the shared attention block), fp32, one seeded set of
      weights on the card and on the CPU: prefill logits (zamba2: a
      200-token prompt, 4 chunks with a ragged tail) and 4 decode steps
      agree within atol 2e-4 / rtol 2e-3, and so does zamba2's SSM state.
   4. serve: qwen2-1.5b (28 layers), granite-moe-3b-a800m (32 layers) and
      zamba2-1.2b (38 Mamba layers, 6 shared-attention insertions) at full
-     width, bf16, random weights, behind repro_torch.launch.serve: every
-     request finishes, every logit is finite, and every prefill and decode
-     step launches each kernel of its path exactly as often as the model
-     has layers (grouped matmul: 3 per layer; zamba2: 38 SSD scans and 6
-     flash per prefill, 6 decode attention and no SSD scan per decode
-     step). Then one profiler window over full-width decode steps of each
-     model: wall time, device busy share, device time by kernel family and
-     by kernel; and one profiled zamba2 prefill of a 63-token prompt, the
-     only place the SSD kernel runs.
+     width, bf16, random weights, behind repro_torch.launch.serve; the
+     multi-LLM example (repro_torch.examples.serve_multi_llm: qwen2-1.5b,
+     28 layers, and glm4-9b, 40 layers, on two engines behind a round
+     robin); whisper-base (6 + 6 layers, 1500 frames, B=8: a 16-token
+     prompt, 16 decode steps) and qwen2-vl-2b (28 layers, B=2: 256 vision
+     tokens and a 32-token prompt, 16 decode steps) through the model API.
+     Every request finishes, every logit is finite, and every prefill and
+     decode step launches each kernel of its path exactly as often as the
+     model has attention layers (grouped matmul: 3 per layer; zamba2: 38
+     SSD scans and 6 flash per prefill, 6 decode attention and no SSD scan
+     per decode step; whisper-base: 18 flash per prefill, 12 decode
+     attention per step, the 6 cross ones on 3 splits). Then one profiler
+     window over full-width decode steps of each served model, glm4-9b
+     and whisper-base: wall time, device busy share, device time by
+     kernel family and by kernel; and one profiled zamba2 prefill of a
+     63-token prompt, the only place the SSD kernel runs.
 The line before the last is a JSON object with every kernel's numbers
 (before_ms: the earlier CUDA-core kernel on the same inputs): attention and
 grouped matmul at granite-moe-3b-a800m's shapes with their launches from
@@ -53,6 +68,7 @@ launches from zamba2's poisson5 run; the last line is
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -93,6 +109,7 @@ SSD_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),      # tests/test_kernels.
 # row by far more.
 SSD_ROW_REL = 1e-2
 SERVE_ARCHS = ("qwen2-1.5b", "granite-moe-3b-a800m", "zamba2-1.2b")
+PARITY_ARCHS = SERVE_ARCHS + ("whisper-base", "qwen2-vl-2b", "glm4-9b")
 # Each kernel's path: granite's runs attention and the grouped matmul,
 # zamba2's the SSD scan (and attention).
 MAIN_ARCH = "granite-moe-3b-a800m"
@@ -256,6 +273,13 @@ def phase_kernels():
         for H, KH, D in ((12, 2, 128), (24, 8, 64), (32, 32, 64)):
             cases += [(H, KH, D, s, s, True) for s in (1, 63, 2048)]
             cases += [(H, KH, D, 37, 100, False), (H, KH, D, 100, 37, False)]
+        # glm4-9b's heads: 16 query heads per KV head (every row of a block's
+        # tile a live head) at D=128
+        cases += [(32, 2, 128, s, s, True) for s in (1, 63, 256)]
+        # whisper-base's encoder (Sq = Sk = 1500) and cross-attention of a
+        # prompt against the 1500 frames, without a causal mask: the last
+        # key tile is partial
+        cases += [(8, 8, 64, s, 1500, False) for s in (1500, 1, 16, 64)]
         for H, KH, D, Sq, Sk, causal in cases:
             for window in (0, 64):
                 q = _randn(gen, 2, Sq, H, D, dtype=dtype)
@@ -314,6 +338,15 @@ def phase_kernels():
             S = DECODE_LONG_S
             lens = torch.full((B,), S, dtype=torch.int32, device="cuda")
             _print_attention(arch, _decode_row(arch, B, S, lens, gen, flush))
+    # whisper-base's encoder and its cross decode over all 1500 frames (3
+    # splits at B=8), and glm4-9b's decode at the multi-LLM example's cache
+    # (4 slots of 128 positions; prompts of 8-47 tokens, up to 23 new).
+    whisper = "whisper-base"
+    _print_attention(whisper, _flash_row(whisper, 1500, gen, flush, B=8, causal=False))
+    lens = torch.full((8,), 1500, dtype=torch.int32, device="cuda")
+    _print_attention(whisper, _decode_row(whisper, 8, 1500, lens, gen, flush))
+    lens = torch.randint(9, 71, (4,), generator=gen, device="cuda", dtype=torch.int32)
+    _print_attention("glm4-9b", _decode_row("glm4-9b", 4, 128, lens, gen, flush))
     # The kernels line reports attention at granite's shapes: the path whose
     # attention launches are counted below.
     flash, decode = rows[MAIN_ARCH]
@@ -337,24 +370,33 @@ def _decode_row_check(what, out, q, kc, vc, lens, window):
     return rel
 
 
+# (B, H, KH, D, Smax, every length full) of the split path's cases: each
+# served model's heads, glm4-9b's (16 query heads per KV head, D=128), and
+# whisper-base's cross cache, whose lengths are all its 1500 frames.
+DECODE_SPLIT_SHAPES = ((1, 12, 2, 128, 4096, False), (8, 12, 2, 128, 4096, False),
+                       (1, 24, 8, 64, 1500, False), (8, 24, 8, 64, 1500, False),
+                       (1, 32, 32, 64, 4096, False), (8, 24, 8, 64, 256, False),
+                       (8, 12, 2, 128, 256, False), (2, 6, 6, 32, 1500, False),
+                       (1, 32, 2, 128, 256, False), (8, 32, 2, 128, 256, False),
+                       (1, 32, 2, 128, 4096, False), (8, 32, 2, 128, 4096, False),
+                       (1, 8, 8, 64, 1500, True), (8, 8, 8, 64, 1500, True))
+
+
 def _decode_split_inputs(gen, sms):
     """The split path's cases: (what, dtype, splits, q, kc, vc, lens, window)
     at lengths 1, 63, 64, 65, on and beside a split's boundary, across it
-    with window 64, at and past Smax; Smax 256, 1500 and 4096; B 1 and 8;
-    each model's heads; fp32 then bf16."""
+    with window 64, at and past Smax (or every length Smax); the shapes of
+    DECODE_SPLIT_SHAPES; fp32 then bf16."""
     from repro_torch.kernels.common import cdiv
     from repro_torch.kernels.decode_attention import ops as da_ops
 
     for dtype in (torch.float32, torch.bfloat16):
-        for B, H, KH, D, S in ((1, 12, 2, 128, 4096), (8, 12, 2, 128, 4096),
-                               (1, 24, 8, 64, 1500), (8, 24, 8, 64, 1500),
-                               (1, 32, 32, 64, 4096), (8, 24, 8, 64, 256),
-                               (8, 12, 2, 128, 256), (2, 6, 6, 32, 1500)):
+        for B, H, KH, D, S, full in DECODE_SPLIT_SHAPES:
             splits = da_ops.split_count(B, KH, S, sms)
             span = cdiv(cdiv(S, da_ops.SPAN_UNIT), splits) * da_ops.SPAN_UNIT
             edges = sorted({e for e in (1, 63, 64, 65, span - 1, span, span + 1, span + 30,
                                         S - 1, S, S + 5) if e >= 1})
-            groups = [[e] for e in edges] if B == 1 else \
+            groups = [[S] * B] if full else [[e] for e in edges] if B == 1 else \
                 [(edges * B)[i:i + B] for i in range(0, len(edges), B)]
             q = _randn(gen, B, H, D, dtype=dtype)
             kc = _randn(gen, B, S, KH, D, dtype=dtype)
@@ -473,10 +515,10 @@ def _decode_row(arch, B, S, lens, gen, flush):
     }
 
 
-def _flash_row(arch, S, gen, flush):
-    """Flash attention timed at ``arch``'s heads, B=1, Sq=Sk=S, bf16,
-    causal, beside its plain version, scaled_dot_product_attention (timed
-    here only) and the bound."""
+def _flash_row(arch, S, gen, flush, B=1, causal=True):
+    """Flash attention timed at ``arch``'s heads, Sq=Sk=S, bf16, causal
+    unless asked, beside its plain version, scaled_dot_product_attention
+    (timed here only) and the bound."""
     import torch.nn.functional as F
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -484,30 +526,29 @@ def _flash_row(arch, S, gen, flush):
 
     cfg = get_config(arch)
     H, KH, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    B = 1
     q, k, v = (_randn(gen, B, S, n, D, dtype=torch.bfloat16) for n in (H, KH, KH))
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    pairs = S * (S + 1) // 2
+    pairs = S * (S + 1) // 2 if causal else S * S
     nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
     bound, by = _bound(nbytes, 4 * B * pairs * H * D)
     return {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:90",
-        "ms": _time_ms(lambda: fa_ops.flash_attention(q, k, v), flush),
-        "before_ms": _time_ms(lambda: _flash_before(q, k, v), flush),
-        "plain_ms": _time_ms(lambda: fa_ref.mha_reference(q, k, v), flush),
+        "ms": _time_ms(lambda: fa_ops.flash_attention(q, k, v, causal=causal), flush),
+        "before_ms": _time_ms(lambda: _flash_before(q, k, v, causal), flush),
+        "plain_ms": _time_ms(lambda: fa_ref.mha_reference(q, k, v, causal=causal), flush),
         "bound_ms": bound, "bound_by": by,
         "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), flush),
-        "host_us": _host_us(lambda: fa_ops.flash_attention(q, k, v)),
-        "shape": f"B={B} S={S} H={H} KH={KH} D={D} bf16 causal",
+            qt, kt, vt, is_causal=causal, enable_gqa=True), flush),
+        "host_us": _host_us(lambda: fa_ops.flash_attention(q, k, v, causal=causal)),
+        "shape": f"B={B} S={S} H={H} KH={KH} D={D} bf16 {'causal' if causal else 'no mask'}",
     }
 
 
-def _flash_before(q, k, v):
+def _flash_before(q, k, v, causal=True):
     """The earlier CUDA-core flash kernel (now the fp32 variant) on the same
-    bf16 inputs, causal, through the C entry point: timed as before_ms,
+    bf16 inputs, Sq = Sk, through the C entry point: timed as before_ms,
     never counted as a launch."""
     from repro_torch.kernels.common import DTYPE_CODES
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -515,7 +556,7 @@ def _flash_before(q, k, v):
     (B, S, H, D), KH = q.shape, k.shape[2]
     out = torch.empty_like(q)
     err = fa_ops._lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                        B, S, S, H, KH, D, DTYPE_CODES[q.dtype], 1, 0, D ** -0.5,
+                        B, S, S, H, KH, D, DTYPE_CODES[q.dtype], int(causal), 0, D ** -0.5,
                         fa_ops.VARIANTS["fma"], q.device.index,
                         torch.cuda.current_stream().cuda_stream)
     assert err == 0, f"flash before: error {err}"
@@ -775,7 +816,9 @@ def _ssd_before(x, dt, A, Bm, Cm, D, init):
 # ---------------------------------------------------------------- phase 3
 def phase_parity(arch):
     """``arch`` at full width, cut in depth, fp32, on the card and on the
-    CPU from one seeded set of weights: 2 layers, a 64-token prompt; for the
+    CPU from one seeded set of weights: 2 layers (Whisper: 2 encoder and 2
+    decoder layers, over its 1500 seeded frames; the VLM: its 256 seeded
+    vision embeddings before the prompt), a 64-token prompt; for the
     hybrid, 12 layers (2 groups of attn_every=6 Mamba layers, each followed
     by the shared block) and a 200-token prompt (4 SSD chunks, the last
     ragged), with its SSM state compared too."""
@@ -785,20 +828,31 @@ def phase_parity(arch):
 
     cfg = get_config(arch)
     hybrid = cfg.family == "hybrid"
-    cfg = cfg.with_(n_layers=2 * cfg.attn_every if hybrid else 2, dtype="float32")
+    cut = dict(n_layers=2 * cfg.attn_every if hybrid else 2, dtype="float32")
+    if cfg.is_encoder_decoder:
+        cut["n_enc_layers"] = 2
+    cfg = cfg.with_(**cut)
     model = get_model(cfg)
     p_cpu = model.init(torch.Generator().manual_seed(0), cfg)
     p_gpu = cm.nest({k: v.cuda() for k, v in cm.flatten(p_cpu).items()})
     rng = np.random.default_rng(0)
     S = 200 if hybrid else 64
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, S)).astype(np.int32))
-    last = torch.tensor([40, S - 1], dtype=torch.int32)
+    V = cfg.n_vision_tokens if cfg.family == "vlm" else 0
+    last = torch.tensor([V + 40, V + S - 1], dtype=torch.int32)
     steps = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 2)).astype(np.int32))
+    batch = {"tokens": toks}
+    if cfg.family == "audio":
+        batch["frames"] = torch.from_numpy(
+            rng.standard_normal((2, cfg.enc_seq, cfg.d_model)).astype(np.float32))
+    if cfg.family == "vlm":
+        batch["vision_embeds"] = torch.from_numpy(
+            rng.standard_normal((2, V, cfg.d_model)).astype(np.float32))
     tol = dict(atol=2e-4, rtol=2e-3)     # the repo's fp32 model bound
 
     logits, caches = {}, {}
     for dev, p in (("cpu", p_cpu), ("cuda", p_gpu)):
-        lg, c = model.prefill(p, cfg, {"tokens": toks.to(dev)}, last.to(dev))
+        lg, c = model.prefill(p, cfg, {k: v.to(dev) for k, v in batch.items()}, last.to(dev))
         # room for 4 decode steps along the K/V sequence axis; the hybrid's
         # SSM and conv state are per sequence and keep their shape
         pad = torch.zeros(c["k"].shape[:2] + (4,) + c["k"].shape[3:], device=dev)
@@ -815,7 +869,10 @@ def phase_parity(arch):
         ssm = caches["cpu"]["ssm"]
         state = (f"; SSM state (max |value| {ssm.abs().max().item():.3e}) max abs err "
                  f"{_check(f'parity {arch} SSM state', caches['cuda']['ssm'].cpu(), ssm, **tol):.3e}")
-    print(f"[parity] {arch} full width, {cfg.n_layers} layers, fp32, {S}-token prompt: "
+    depth = f"{cfg.n_enc_layers} + {cfg.n_layers}" if cfg.is_encoder_decoder else cfg.n_layers
+    inputs = f", {cfg.enc_seq} frames" if cfg.family == "audio" else \
+        f", {V} vision tokens" if V else ""
+    print(f"[parity] {arch} full width, {depth} layers, fp32, {S}-token prompt{inputs}: "
           f"prefill + 4 decode steps on the card match the CPU, logits max abs err "
           f"{err:.3e}{state} (atol {tol['atol']}, rtol {tol['rtol']})")
 
@@ -839,7 +896,9 @@ def _per_call_launches(cfg):
     attention kernel per layer, and for MoE three grouped matmuls per layer
     (gate, up, down). The hybrid: one SSD scan per Mamba layer in prefill
     (none in decode, whose one-token recurrence is plain torch) and one
-    attention kernel per shared-block insertion."""
+    attention kernel per shared-block insertion. Whisper: one flash per
+    encoder layer and two per decoder layer (self, cross) in prefill, two
+    decode attention per decoder layer in decode."""
     L = cfg.n_layers
     if cfg.family == "hybrid":
         ni = L // cfg.attn_every
@@ -847,11 +906,60 @@ def _per_call_launches(cfg):
                             "grouped_matmul": 0, "ssd_scan": L},
                 "decode": {"flash_attention": 0, "decode_attention": ni,
                            "grouped_matmul": 0, "ssd_scan": 0}}
+    if cfg.family == "audio":
+        return {"prefill": {"flash_attention": cfg.n_enc_layers + 2 * L, "decode_attention": 0,
+                            "grouped_matmul": 0, "ssd_scan": 0},
+                "decode": {"flash_attention": 0, "decode_attention": 2 * L,
+                           "grouped_matmul": 0, "ssd_scan": 0}}
     gmm = 3 * L if cfg.family == "moe" else 0
     return {"prefill": {"flash_attention": L, "decode_attention": 0, "grouped_matmul": gmm,
                         "ssd_scan": 0},
             "decode": {"flash_attention": 0, "decode_attention": L, "grouped_matmul": gmm,
                        "ssd_scan": 0}}
+
+
+class _Counted:
+    """For the length of a ``with``, wraps a family module's prefill and
+    decode_step (the engine and the model API call them through the module):
+    every call must launch each kernel exactly as _per_call_launches says
+    for the config it is given. Counts the calls per (model, kind) and keeps
+    whether every logit was finite; on entry sets every launch count to 0."""
+
+    def __init__(self, model):
+        self.model = model
+        self.ops = _kernel_ops()
+        self.real = {"prefill": model.prefill, "decode": model.decode_step}
+        self.calls = {}
+        self.finite = torch.ones((), dtype=torch.bool, device="cuda")
+
+    def _wrap(self, kind):
+        def call(params, cfg, *a, **kw):
+            before = {n: op.launches for n, op in self.ops.items()}
+            logits, cache = self.real[kind](params, cfg, *a, **kw)
+            made = {n: op.launches - before[n] for n, op in self.ops.items()}
+            want = _per_call_launches(cfg)[kind]
+            assert made == want, f"{cfg.name} {kind}: launches {made}, want {want}"
+            self.calls[cfg.name, kind] = self.calls.get((cfg.name, kind), 0) + 1
+            self.finite.logical_and_(torch.isfinite(logits).all())
+            return logits, cache
+        return call
+
+    def launches(self):
+        return {n: op.launches for n, op in self.ops.items()}
+
+    def expected(self, cfgs):
+        """Launches the counted calls of the models ``cfgs`` must have made."""
+        return {n: sum(_per_call_launches(c)[k][n] * self.calls.get((c.name, k), 0)
+                       for c in cfgs for k in ("prefill", "decode")) for n in self.ops}
+
+    def __enter__(self):
+        for op in self.ops.values():
+            op.launches = 0
+        self.model.prefill, self.model.decode_step = self._wrap("prefill"), self._wrap("decode")
+        return self
+
+    def __exit__(self, *exc):
+        self.model.prefill, self.model.decode_step = self.real["prefill"], self.real["decode"]
 
 
 def phase_serve(arch):
@@ -864,49 +972,159 @@ def phase_serve(arch):
 
     cfg = get_config(arch)
     model = get_model(cfg)      # the family's module, which the engine calls
-    ops = _kernel_ops()
-    want_per_call = _per_call_launches(cfg)
-    calls = {"prefill": 0, "decode": 0}
-    finite = torch.ones((), dtype=torch.bool, device="cuda")
-    real = {"prefill": model.prefill, "decode": model.decode_step}
-
-    def counted(kind):
-        def call(*a, **kw):
-            before = {n: op.launches for n, op in ops.items()}
-            logits, cache = real[kind](*a, **kw)
-            made = {n: op.launches - before[n] for n, op in ops.items()}
-            assert made == want_per_call[kind], \
-                f"{arch} {kind}: launches {made}, want {want_per_call[kind]}"
-            calls[kind] += 1
-            finite.logical_and_(torch.isfinite(logits).all())
-            return logits, cache
-        return call
-
-    model.prefill, model.decode_step = counted("prefill"), counted("decode")
-    try:
+    with _Counted(model) as warm:
         # warm-up: first-call costs (cuBLAS handles, allocator) out of the numbers
         serve(cfg, n_requests=2, rate=1e3, max_len=SERVE_MAX_LEN, seed=1, device="cuda")
-        runs = {}
-        for label, rate in (("poisson5", 5.0), ("burst", 1e6)):
-            calls.update(prefill=0, decode=0)
-            for op in ops.values():
-                op.launches = 0
+    assert bool(warm.finite), f"{arch} warm-up: non-finite logits"
+    runs = {}
+    for label, rate in (("poisson5", 5.0), ("burst", 1e6)):
+        with _Counted(model) as counted:
             finished, summary = serve(cfg, n_requests=16, rate=rate, max_batch=8,
                                       max_len=SERVE_MAX_LEN, seed=0, device="cuda")
-            launches = {n: op.launches for n, op in ops.items()}
-            assert len(finished) == 16, f"{label}: {len(finished)} of 16 requests finished"
-            assert bool(finite), f"{arch} {label}: non-finite logits"
-            assert calls["prefill"] == 16 and calls["decode"] > 0, calls
-            want = {n: sum(want_per_call[k][n] * calls[k] for k in calls) for n in ops}
-            assert launches == want, f"{arch} {label}: launches {launches}, want {want}"
-            print(f"[serve] {arch} {label}: rate {rate}/s, {calls['prefill']} prefills, "
-                  f"{calls['decode']} decode steps, kernels {json.dumps(launches)}")
-            print(f"[serve] {arch} {label}: {json.dumps(summary)}")
-            runs[label] = (launches, summary)
-    finally:
-        model.prefill, model.decode_step = real["prefill"], real["decode"]
+        launches = counted.launches()
+        calls = {k: counted.calls.get((cfg.name, k), 0) for k in ("prefill", "decode")}
+        assert len(finished) == 16, f"{label}: {len(finished)} of 16 requests finished"
+        assert bool(counted.finite), f"{arch} {label}: non-finite logits"
+        assert calls["prefill"] == 16 and calls["decode"] > 0, calls
+        want = counted.expected([cfg])
+        assert launches == want, f"{arch} {label}: launches {launches}, want {want}"
+        print(f"[serve] {arch} {label}: rate {rate}/s, {calls['prefill']} prefills, "
+              f"{calls['decode']} decode steps, kernels {json.dumps(launches)}")
+        print(f"[serve] {arch} {label}: {json.dumps(summary)}")
+        runs[label] = (launches, summary)
     torch.cuda.empty_cache()
     return runs
+
+
+def phase_multi_llm():
+    """The multi-LLM example at full width, bf16, random weights from a seed:
+    qwen2-1.5b (28 layers) and glm4-9b (40 layers) on two engines behind the
+    round robin, the JAX example's trace (16 requests per model at 4 req/s
+    per model). Every request finishes, every logit is finite, and each
+    engine's prefills and decode steps launch flash and decode attention
+    once per layer of its model."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.examples.serve_multi_llm import ARCHS, N_REQ, serve_multi_llm
+    from repro_torch.models.api import get_model
+
+    cfgs = [get_config(a) for a in ARCHS]
+    model = get_model(cfgs[0])
+    assert all(get_model(c) is model for c in cfgs)
+    with _Counted(model) as warm:       # warm-up: one request per model
+        serve_multi_llm(n_req=1, rate=1e3, smoke=False, device="cuda", seed=1)
+    assert bool(warm.finite), "multi-LLM warm-up: non-finite logits"
+    torch.cuda.empty_cache()
+    with _Counted(model) as counted:
+        finished, summary = serve_multi_llm(smoke=False, device="cuda")
+    assert len(finished) == N_REQ * len(ARCHS), f"{len(finished)} requests finished"
+    assert bool(counted.finite), "multi-LLM: non-finite logits"
+    for c in cfgs:
+        assert counted.calls.get((c.name, "prefill")) == N_REQ and \
+            counted.calls.get((c.name, "decode"), 0) > 0, counted.calls
+    launches, want = counted.launches(), counted.expected(cfgs)
+    assert launches == want, f"multi-LLM: launches {launches}, want {want}"
+    print(f"[serve] multi-LLM {' + '.join(ARCHS)} full width: calls "
+          f"{json.dumps({f'{m} {k}': n for (m, k), n in sorted(counted.calls.items())})}, "
+          f"kernels {json.dumps(launches)}")
+    for arch, s in summary.items():
+        print(f"[serve] multi-LLM {arch}: {json.dumps(s)}")
+    torch.cuda.empty_cache()
+    return launches
+
+
+@contextlib.contextmanager
+def _split_counts():
+    """Records (Smax, splits) of every bf16 decode launch: the host's split
+    rule, which the wrapper calls once per launch."""
+    from repro_torch.kernels.decode_attention import ops as da_ops
+
+    real, seen = da_ops.split_count, []
+
+    def record(B, KH, Smax, sms):
+        seen.append((Smax, real(B, KH, Smax, sms)))
+        return seen[-1][1]
+
+    da_ops.split_count = record
+    try:
+        yield seen
+    finally:
+        da_ops.split_count = real
+
+
+def phase_model_api(arch, B, S, steps=16, profile_steps=0):
+    """``arch`` at full width, bf16, random weights from a seed, greedy
+    through the model API (the engine serves neither Whisper nor the VLM,
+    as JaxEngine does not): one prefill of B prompts of S tokens (Whisper:
+    over 1500 seeded frames; the VLM: after 256 seeded vision embeddings),
+    then ``steps`` decode steps, each checked for its launches and finite
+    logits; Whisper's cross decode must run on the split path. Then, if
+    asked, one profiler window over ``profile_steps`` further steps."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.models.api import get_model
+
+    cfg = get_config(arch)
+    model = get_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = model.init(gen, cfg)
+    dt = params["ln_f"]["scale"].dtype
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)).cuda()}
+    if cfg.family == "audio":
+        batch["frames"] = _randn(gen, B, cfg.enc_seq, cfg.d_model, dtype=dt)
+    if cfg.family == "vlm":
+        batch["vision_embeds"] = _randn(gen, B, cfg.n_vision_tokens, cfg.d_model, dtype=dt)
+    with _Counted(model) as counted, _split_counts() as splits:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, cfg, batch)
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+        # room in the self-attention cache for every step to come
+        pad = torch.zeros(cache["k"].shape[:2] + (steps + profile_steps,) + cache["k"].shape[3:],
+                          dtype=cache["k"].dtype, device="cuda")
+        cache = dict(cache, k=torch.cat([cache["k"], pad], 2), v=torch.cat([cache["v"], pad], 2))
+        tok = logits[:, :cfg.vocab_size].argmax(-1).int()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            logits, cache = model.decode_step(params, cfg, cache, tok)
+            tok = logits[:, :cfg.vocab_size].argmax(-1).int()
+        torch.cuda.synchronize()
+        t_decode = time.perf_counter() - t0
+    assert counted.calls == {(cfg.name, "prefill"): 1, (cfg.name, "decode"): steps}, counted.calls
+    assert bool(counted.finite), f"{arch}: non-finite logits"
+    launches = counted.launches()
+    assert launches == counted.expected([cfg]), launches
+    assert cache["len"].tolist() == [cache["k"].shape[2] - profile_steps] * B
+    by_smax = {}
+    for smax, n in splits:
+        by_smax.setdefault(smax, set()).add(n)
+    split_note = ""
+    if cfg.family == "audio":
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        want = da_ops.split_count(B, cfg.n_kv_heads, cfg.enc_seq, sms)
+        assert by_smax.get(cfg.enc_seq) == {want} and want > 1, by_smax
+        assert len(splits) == steps * 2 * cfg.n_layers, len(splits)
+        split_note = f", cross decode on {want} splits ({sms} SMs)"
+    V = cfg.n_vision_tokens if cfg.family == "vlm" else 0
+    what = f"{arch} full width bf16, B={B}, {S}-token prompt" + \
+        (f" + {V} vision tokens" if V else "") + \
+        (f" over {cfg.enc_seq} frames" if cfg.family == "audio" else "")
+    print(f"[serve] {what}: prefill {1e3 * t_prefill:.1f} ms, {steps} decode steps "
+          f"{1e3 * t_decode / steps:.1f} ms/step, {B * steps / t_decode:.1f} tok/s; kernels "
+          f"{json.dumps(launches)}; decode splits by Smax "
+          f"{json.dumps({k: sorted(v) for k, v in sorted(by_smax.items())})}{split_note}")
+    if profile_steps:
+        state = {"cache": cache, "tok": tok}
+
+        def step():
+            lg, state["cache"] = model.decode_step(params, cfg, state["cache"], state["tok"])
+            state["tok"] = lg[:, :cfg.vocab_size].argmax(-1).int()
+
+        _profiled(f"decode step, B={B}, {arch} bf16", step, profile_steps)
+    del params, cache
+    torch.cuda.empty_cache()
 
 
 KERNEL_FAMILIES = {"grouped matmul": ("gmm_kernel", "gmm_mma_kernel"),
@@ -984,10 +1202,13 @@ def main():
     t0 = time.time()
     phase_device()
     kernels = phase_kernels()
-    for arch in SERVE_ARCHS:
+    for arch in PARITY_ARCHS:
         phase_parity(arch)
     runs = {arch: phase_serve(arch) for arch in SERVE_ARCHS}
-    for arch in SERVE_ARCHS:
+    phase_multi_llm()
+    phase_model_api("whisper-base", B=8, S=16, profile_steps=4)
+    phase_model_api("qwen2-vl-2b", B=2, S=32)
+    for arch in SERVE_ARCHS + ("glm4-9b",):
         phase_profile(arch)
     # each kernel's launches on its path's poisson5 run (granite's runs
     # attention and the grouped matmul, zamba2's the SSD scan); each path's

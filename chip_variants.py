@@ -9,8 +9,8 @@ split-KV decode (csrc/decode_attention.cu) and the SSD scan
 (csrc/mamba_scan.cu) are built again with other values of their constants
 (gmm: f tile width and ring depth; flash: warps per block, keys per tile,
 K/V ring depth, a register cap; decode: keys per tile, K/V ring depth, and
-besides the host's split rule, fixed split counts; SSD: columns of P per
-block) into
+besides the host's split rule, fixed split counts, whisper-base's cross
+decode over 1500 frames among them; SSD: columns of P per block) into
 build/repro_torch/variants/. Each variant is timed with
 chip_smoke.py's _time_ms (L2 cold and clean, host enqueue hidden) at the
 served models' shapes, bf16, beside torch.bmm /
@@ -51,9 +51,18 @@ VARIANTS = {
 }
 GMM_SHAPES = [(40, c, d, f) for c in (4, 16, 64) for d, f in ((1536, 512), (512, 1536))]
 FLASH_HEADS = ((12, 2, 128), (24, 8, 64), (32, 32, 64))     # qwen2, granite, zamba2
-DECODE_SHAPES = [(8, 24, 8, 64, 256, "serve")] + \
-    [(B, H, KH, D, 4096, "full") for H, KH, D in FLASH_HEADS for B in (1, 8)]
 DECODE_FIXED_SPLITS = (1, 2, 4, 8, 16, 32, 64)
+WHISPER_CROSS_SPLITS = (1, 3, 6, 12)    # 24, 8, 4 and 2 units of 64 frames per split
+# (B, H, KH, D, Smax, lengths, fixed split counts timed beside the rule's):
+# granite's serving cache, each model's heads at Smax 4096, whisper-base's
+# cross decode over its 1500 frames, and qwen2-vl-2b's cache after 256
+# vision tokens, a 32-token prompt and 16 decode steps (5 units: the rule
+# takes 2 splits, of 4 units and of 1)
+DECODE_SHAPES = [(8, 24, 8, 64, 256, "serve", DECODE_FIXED_SPLITS)] + \
+    [(B, H, KH, D, 4096, "full", DECODE_FIXED_SPLITS) for H, KH, D in FLASH_HEADS
+     for B in (1, 8)] + \
+    [(B, 8, 8, 64, 1500, "full", WHISPER_CROSS_SPLITS) for B in (1, 8)] + \
+    [(2, 12, 2, 128, 304, "full", (1, 3, 5))]
 SSD_S = (64, 256, 1000)        # zamba2's prefill chunk, then longer prompts
 
 
@@ -68,7 +77,7 @@ def _decode_variants(cs, libs, flush, gen, stream):
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     cnt = torch.zeros(4096, dtype=torch.int32, device="cuda")
-    for B, H, KH, D, S, kind in DECODE_SHAPES:
+    for B, H, KH, D, S, kind, fixed in DECODE_SHAPES:
         q = cs._randn(gen, B, H, D, dtype=torch.bfloat16)
         kc, vc = (cs._randn(gen, B, S, KH, D, dtype=torch.bfloat16) for _ in range(2))
         lens = torch.full((B,), S, dtype=torch.int32, device="cuda") if kind == "full" else \
@@ -94,8 +103,7 @@ def _decode_variants(cs, libs, flush, gen, stream):
             fns[name] = fn
         row = [timed(name, fn, rule) for name, fn in fns.items()]
         units = cdiv(S, da_ops.SPAN_UNIT)
-        row += [timed("kt64r2", fns["kt64r2"], n) for n in DECODE_FIXED_SPLITS
-                if n <= units and n != rule]
+        row += [timed("kt64r2", fns["kt64r2"], n) for n in fixed if n <= units and n != rule]
         print(f"[variants] decode B={B} Smax={S} H={H} KH={KH} D={D} {kind} lengths "
               f"(rule: {rule} splits) us: {', '.join(row)}", flush=True)
 

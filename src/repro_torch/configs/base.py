@@ -1,10 +1,13 @@
-"""Model configuration for the decoders the port serves (dense, MoE and
-hybrid Mamba2).
+"""Model configuration for the models the port runs: the decoders it serves
+(dense, MoE and hybrid Mamba2), and Whisper (audio) and Qwen2-VL (vlm) at
+the model API.
 
 An own copy of ``ModelConfig``, cut to the fields and properties the
-dense, MoE and hybrid paths read. ``weight_sharding`` and ``kv_seq_shard`` are kept so
-that the per-arch ``config()`` functions stay verbatim copies; nothing
-in the port reads them until it has a mesh.
+dense, MoE, hybrid, audio and vlm paths read. ``weight_sharding``,
+``kv_seq_shard`` and ``vision_stub`` are kept so that the per-arch
+``config()`` functions stay verbatim copies; nothing in the port reads
+the first two until it has a mesh, and the third records that the vision
+tower is a stub (the batch brings the vision embeddings).
 """
 from __future__ import annotations
 
@@ -14,7 +17,7 @@ from dataclasses import dataclass, replace
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # dense | moe | hybrid (the families ported so far)
+    family: str                      # dense | moe | hybrid | audio | vlm (ssm: not ported yet)
     n_layers: int
     d_model: int
     n_heads: int
@@ -24,7 +27,7 @@ class ModelConfig:
 
     head_dim: int = 0                # 0 -> d_model // n_heads
     qkv_bias: bool = False
-    rope: str = "rope"               # rope (mrope / sinusoidal / none: later slices)
+    rope: str = "rope"               # rope | mrope | none | sinusoidal
     rope_theta: float = 1e6
     sliding_window: int = 0          # 0 -> full attention
     norm_eps: float = 1e-5
@@ -45,6 +48,15 @@ class ModelConfig:
     ssm_expand: int = 2              # d_inner = expand * d_model
     ssm_conv: int = 4
     attn_every: int = 0              # hybrid: shared attn block after every k SSM layers
+
+    # --- encoder-decoder (whisper) ---
+    is_encoder_decoder: bool = False
+    n_enc_layers: int = 0
+    enc_seq: int = 0                 # encoder positions (whisper-base: 1500)
+
+    # --- VLM ---
+    vision_stub: bool = False        # frontend stubbed: input provides patch embeds
+    n_vision_tokens: int = 0
 
     dtype: str = "bfloat16"          # weight and activation dtype
     weight_sharding: str = "tp"      # sharding hint, unused without a mesh

@@ -3,10 +3,11 @@ forward, prefill, decode_step and init_cache."""
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import hybrid, transformer
+from repro_torch.models import hybrid, transformer, whisper
 
 
-_FAMILY = {"dense": transformer, "moe": transformer, "hybrid": hybrid}
+_FAMILY = {"dense": transformer, "moe": transformer, "vlm": transformer,
+           "audio": whisper, "hybrid": hybrid}
 
 
 def get_model(cfg: ModelConfig):

@@ -1,6 +1,7 @@
-"""GQA attention layer: full-sequence forward (prefill) and single-token
-cached decode, with RoPE. Attention itself runs in the hand-written
-kernels; the projections are plain matmuls."""
+"""GQA attention layer: full-sequence forward (prefill, cross-attention)
+and single-token cached decode, with RoPE, M-RoPE or no rotation.
+Attention itself runs in the hand-written kernels; the projections are
+plain matmuls."""
 from __future__ import annotations
 
 import torch
@@ -22,37 +23,51 @@ def _project_qkv(p, cfg, x):
             v.reshape(*B, S, KH, hd))
 
 
-def _rope_qk(cfg, q, k, positions):
-    if cfg.rope != "rope":
-        raise NotImplementedError(f"rope={cfg.rope!r} is not ported yet")
-    return (cm.apply_rope(q, positions, cfg.rope_theta),
-            cm.apply_rope(k, positions, cfg.rope_theta))
+def _rope_qk(cfg, q, k, positions, mrope_pos=None):
+    """RoPE on q and k at ``positions``, or M-RoPE at the 3-row
+    ``mrope_pos``; sinusoidal and rope-free models pass q and k through
+    (their positions, if any, are added to the embeddings)."""
+    if cfg.rope == "rope":
+        return (cm.apply_rope(q, positions, cfg.rope_theta),
+                cm.apply_rope(k, positions, cfg.rope_theta))
+    if cfg.rope == "mrope":
+        return (cm.apply_mrope(q, mrope_pos, cfg.rope_theta),
+                cm.apply_mrope(k, mrope_pos, cfg.rope_theta))
+    if cfg.rope in ("sinusoidal", "none"):
+        return q, k
+    raise ValueError(f"unknown rope {cfg.rope!r}")
 
 
-def attn_forward(p, cfg, x, positions=None, causal=True):
-    """Full-sequence attention. x: (B,S,d)."""
-    return _attend(p, cfg, x, positions, causal)[0]
+def attn_forward(p, cfg, x, positions=None, mrope_pos=None, causal=True, kv=None):
+    """Full-sequence attention. x: (B,S,d). kv: optional (k, v) for
+    cross-attention, (B,Sk,KH,hd) each: then neither rope nor any mask but
+    the causal one the caller asks for."""
+    return _attend(p, cfg, x, positions, mrope_pos, causal, kv)[0]
 
 
-def attn_prefill(p, cfg, x, positions=None):
+def attn_prefill(p, cfg, x, positions=None, mrope_pos=None):
     """Causal forward; returns (out, (k, v)), k/v the cache slices (B,S,KH,hd)."""
-    return _attend(p, cfg, x, positions, True)
+    return _attend(p, cfg, x, positions, mrope_pos, True)
 
 
-def _attend(p, cfg, x, positions, causal):
+def _attend(p, cfg, x, positions, mrope_pos, causal, kv=None):
     B, S, _ = x.shape
     q, k, v = _project_qkv(p, cfg, x)
-    if positions is None:
-        positions = torch.arange(S, device=x.device)[None, :]
-    q, k = _rope_qk(cfg, q, k, positions)
+    if kv is not None:
+        k, v = kv
+    else:
+        if positions is None:
+            positions = torch.arange(S, device=x.device)[None, :]
+        q, k = _rope_qk(cfg, q, k, positions, mrope_pos)
     out = fa_ops.flash_attention(q, k, v, causal=causal,
                                  window=cfg.sliding_window)
     return out.reshape(B, S, -1) @ p["wo"], (k, v)
 
 
-def attn_decode(p, cfg, x, cache_k, cache_v, lengths):
+def attn_decode(p, cfg, x, cache_k, cache_v, lengths, mrope_pos=None):
     """One-token decode. x: (B,d); cache_k/v: (B,Smax,KH,hd); lengths (B,)
-    int32 = number of valid tokens BEFORE this one.
+    int32 = number of valid tokens BEFORE this one, the token's RoPE
+    position (M-RoPE: ``mrope_pos``, (3, B, 1)).
 
     Writes this token's K/V into the caches IN PLACE at position
     ``lengths`` -- only where lengths < Smax: an idle serving slot's length
@@ -61,7 +76,7 @@ def attn_decode(p, cfg, x, cache_k, cache_v, lengths):
     """
     B = x.shape[0]
     q, k, v = _project_qkv(p, cfg, x[:, None, :])
-    q, k = _rope_qk(cfg, q, k, lengths[:, None])
+    q, k = _rope_qk(cfg, q, k, lengths[:, None], mrope_pos)
     S = cache_k.shape[1]
     rows = torch.arange(B, device=x.device)
     fits = (lengths < S)[:, None, None]

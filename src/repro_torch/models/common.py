@@ -4,7 +4,7 @@ stacked-layer axis), so a ``repro`` checkpoint loads directly."""
 from __future__ import annotations
 
 import math
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import torch
 
@@ -43,6 +43,13 @@ def flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
         else:
             flat[key] = node
     return flat
+
+
+def layer_views(stacked: Dict[str, Any], n: int):
+    """Per-layer views of a tree of params stacked along a leading axis of
+    ``n`` layers."""
+    flat = flatten(stacked)
+    return [nest({k: v[i] for k, v in flat.items()}) for i in range(n)]
 
 
 # ---------------------------------------------------------------- init utils
@@ -103,6 +110,40 @@ def apply_rope(x, positions, theta: float):
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def mrope_sections(head_dim: int) -> Tuple[int, int, int]:
+    half = head_dim // 2
+    s1 = half // 4
+    s2 = (half - s1) // 2
+    return s1, s2, half - s1 - s2
+
+
+def apply_mrope(x, positions3, theta: float):
+    """M-RoPE: positions3 (3, ..., S) = (temporal, h, w) ids; the frequency
+    bands are split across the three components (Qwen2-VL §2)."""
+    D = x.shape[-1]
+    inv = rope_freqs(D, theta, x.device)
+    parts, off = [], 0
+    for comp, sec in enumerate(mrope_sections(D)):
+        parts.append(positions3[comp][..., None].float() * inv[off:off + sec])
+        off += sec
+    ang = torch.cat(parts, dim=-1)                          # (..., S, D/2)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def sinusoidal_pos(S: int, d: int, offset=0, device=None):
+    """(S, d) fp32 sin/cos table of positions offset .. offset + S - 1;
+    ``offset`` may also be a (B, 1) tensor of per-sequence offsets, which
+    gives (B, S, d)."""
+    pos = torch.arange(S, dtype=torch.float32, device=device) + offset
+    inv = 1.0 / (10000.0 ** (torch.arange(d // 2, dtype=torch.float32, device=device)
+                             / (d // 2)))
+    ang = pos[..., None] * inv
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # --------------------------------------------------------------- embeddings

@@ -177,8 +177,7 @@ def _groups(cfg):
 
 def _layers(params, cfg) -> List[Dict]:
     """Per-layer views of the stacked Mamba params."""
-    flat = cm.flatten(params["mamba"])
-    return [cm.nest({k: v[i] for k, v in flat.items()}) for i in range(cfg.n_layers)]
+    return cm.layer_views(params["mamba"], cfg.n_layers)
 
 
 def forward(params, cfg, batch):

@@ -1,4 +1,4 @@
-"""Decoder-only transformer LM, dense and MoE families.
+"""Decoder-only transformer LM: dense, MoE and VLM families.
 
 Layers are stacked along a leading axis, as in the JAX package, and run
 in a Python loop over per-layer views. Decode updates the KV cache in
@@ -62,24 +62,24 @@ def _ffn(p, cfg, x):
     return mlp_mod.mlp_forward(p["mlp"], cfg, x), 0.0
 
 
-def layer_forward(p, cfg, h, positions):
+def layer_forward(p, cfg, h, positions, mrope_pos=None):
     h = h + attn.attn_forward(p["attn"], cfg, cm.rmsnorm(h, p["ln1"], cfg.norm_eps),
-                              positions)
+                              positions, mrope_pos)
     y, aux = _ffn(p, cfg, cm.rmsnorm(h, p["ln2"], cfg.norm_eps))
     return h + y, aux
 
 
-def layer_prefill(p, cfg, h, positions):
+def layer_prefill(p, cfg, h, positions, mrope_pos=None):
     a, kv = attn.attn_prefill(p["attn"], cfg, cm.rmsnorm(h, p["ln1"], cfg.norm_eps),
-                              positions)
+                              positions, mrope_pos)
     h = h + a
     y, _ = _ffn(p, cfg, cm.rmsnorm(h, p["ln2"], cfg.norm_eps))
     return h + y, kv
 
 
-def layer_decode(p, cfg, h, ck, cv, lengths):
+def layer_decode(p, cfg, h, ck, cv, lengths, mrope_pos=None):
     h = h + attn.attn_decode(p["attn"], cfg, cm.rmsnorm(h, p["ln1"], cfg.norm_eps),
-                             ck, cv, lengths)
+                             ck, cv, lengths, mrope_pos)
     x = cm.rmsnorm(h, p["ln2"], cfg.norm_eps)
     if cfg.family == "moe":               # every slot is one token of the batch
         y, _ = mlp_mod.moe_forward(p["moe"], cfg, x[:, None, :])
@@ -89,9 +89,7 @@ def layer_decode(p, cfg, h, ck, cv, lengths):
 
 def _layers(params, cfg) -> List[Dict]:
     """Per-layer views of the stacked layer params."""
-    flat = cm.flatten(params["layers"])
-    return [cm.nest({k: v[i] for k, v in flat.items()})
-            for i in range(cfg.n_layers)]
+    return cm.layer_views(params["layers"], cfg.n_layers)
 
 
 # ------------------------------------------------------------------- model
@@ -103,19 +101,36 @@ def init(gen: torch.Generator, cfg, dtype: torch.dtype | None = None):
     return cm.init_params(gen, cfg, param_shapes(cfg), lambda key: param_dtype(key, dtype))
 
 
-def _embed(params, batch):
+def _positions_and_embeds(params, cfg, batch):
+    """Token embeddings and RoPE positions (B, S); for the VLM the vision
+    embeddings (B, V, d) go first, and the 3-row M-RoPE positions
+    (3, B, V + S) take the place of ``positions``: the vision tokens on a
+    side x side grid at time 0, text token t at side + t on all three."""
     tokens = batch["tokens"]
-    positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
-    return cm.embed_tokens(params["emb"], tokens), positions
+    B, S = tokens.shape
+    dev = tokens.device
+    h = cm.embed_tokens(params["emb"], tokens)
+    if cfg.family != "vlm":
+        return h, torch.arange(S, device=dev)[None, :], None
+    ve = batch["vision_embeds"].to(h.dtype)
+    V = ve.shape[1]
+    h = torch.cat([ve, h], dim=1)
+    side = max(int(V ** 0.5), 1)
+    vis = torch.arange(V, device=dev)
+    txt = side + torch.arange(S, device=dev)
+    pos3 = torch.stack([torch.cat([torch.zeros_like(vis), txt]),
+                        torch.cat([vis // side, txt]),
+                        torch.cat([vis % side, txt])])            # (3, V + S)
+    return h, None, pos3[:, None, :].expand(3, B, V + S)
 
 
 def forward(params, cfg, batch):
-    """Teacher-forced logits (B, S, Vp) and the aux loss summed over layers
-    (0.0 for dense)."""
-    h, positions = _embed(params, batch)
+    """Teacher-forced logits (B, S, Vp) (VLM: (B, V + S, Vp)) and the aux
+    loss summed over layers (0.0 for dense)."""
+    h, positions, mrope_pos = _positions_and_embeds(params, cfg, batch)
     aux = 0.0
     for lp in _layers(params, cfg):
-        h, a = layer_forward(lp, cfg, h, positions)
+        h, a = layer_forward(lp, cfg, h, positions, mrope_pos)
         aux = aux + a
     h = cm.rmsnorm(h, params["ln_f"], cfg.norm_eps)
     return cm.unembed(params["emb"], cfg, h), aux
@@ -138,10 +153,10 @@ def prefill(params, cfg, batch, last_pos=None):
     cache). ``last_pos`` (B,) overrides the sampled position for
     bucket-padded prompts (pads are never attended: the engine sets the
     cache length)."""
-    h, positions = _embed(params, batch)
+    h, positions, mrope_pos = _positions_and_embeds(params, cfg, batch)
     ks, vs = [], []
     for lp in _layers(params, cfg):
-        h, (k, v) = layer_prefill(lp, cfg, h, positions)
+        h, (k, v) = layer_prefill(lp, cfg, h, positions, mrope_pos)
         ks.append(k)
         vs.append(v)
     B, S = h.shape[:2]
@@ -160,8 +175,11 @@ def decode_step(params, cfg, cache, tokens):
     updates IN PLACE; only ``len`` is a new tensor (every slot + 1)."""
     h = cm.embed_tokens(params["emb"], tokens)              # (B, d)
     lengths = cache["len"]
+    mrope_pos = None
+    if cfg.family == "vlm":    # the cache length on all three rows, as in the JAX package
+        mrope_pos = lengths[None, :, None].expand(3, -1, 1)
     for i, lp in enumerate(_layers(params, cfg)):
-        h = layer_decode(lp, cfg, h, cache["k"][i], cache["v"][i], lengths)
+        h = layer_decode(lp, cfg, h, cache["k"][i], cache["v"][i], lengths, mrope_pos)
     h = cm.rmsnorm(h, params["ln_f"], cfg.norm_eps)
     logits = cm.unembed(params["emb"], cfg, h)
     return logits, {"k": cache["k"], "v": cache["v"], "len": lengths + 1}

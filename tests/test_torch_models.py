@@ -148,10 +148,10 @@ def test_params_from_numpy_keeps_the_router_fp32():
 def test_unported_families_and_devices_raise(monkeypatch):
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels.common import resolve_device
-    for arch in ("whisper-base", "qwen2-vl-2b", "xlstm-350m"):
+    for arch in ("xlstm-350m",):
         with pytest.raises(NotImplementedError):
             get_config(arch)
-    for family in ("audio", "vlm", "ssm"):
+    for family in ("ssm",):
         with pytest.raises(NotImplementedError):
             mapi.get_model(get_smoke_config("qwen2-1.5b").with_(family=family))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
