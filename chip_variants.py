@@ -207,10 +207,10 @@ def _flash_variants(cs, libs, flush, gen, stream):
             row = [f"sdpa {1e3 * cs._time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True), flush):.1f}"]  # noqa: E501
             for name in VARIANTS["flash_attention"]:
                 fn = libs[("flash_attention", name)].repro_flash_attention
-                fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + \
+                fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + \
                     [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
                 call = lambda: fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),  # noqa: E731
-                                  1, S, S, H, KH, D, 1, 1, 0, D ** -0.5, 1, 0, stream)
+                                  None, 1, S, S, H, KH, D, 1, 1, 0, D ** -0.5, 1, 0, stream)
                 assert call() == 0
                 torch.cuda.synchronize()
                 cs._check(f"flash {name}", o, want, **cs.TOL[torch.bfloat16])

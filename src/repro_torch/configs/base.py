@@ -3,11 +3,13 @@
 the model API.
 
 An own copy of ``ModelConfig``, cut to the fields and properties the
-dense, MoE, hybrid, audio and vlm paths read. ``weight_sharding``,
-``kv_seq_shard`` and ``vision_stub`` are kept so that the per-arch
-``config()`` functions stay verbatim copies; nothing in the port reads
-the first two until it has a mesh, and the third records that the vision
-tower is a stub (the batch brings the vision embeddings).
+dense, MoE, hybrid, audio and vlm paths read, in serving and in
+training. ``weight_sharding``, ``kv_seq_shard`` and ``vision_stub`` are
+kept so that the per-arch ``config()`` functions stay verbatim copies;
+nothing in the port reads the first two until it has a mesh, and the
+third records that the vision tower is a stub (the batch brings the
+vision embeddings). ``param_dtype`` is the reference's training field,
+unread there as here: both inits build params in ``dtype``.
 """
 from __future__ import annotations
 
@@ -59,6 +61,8 @@ class ModelConfig:
     n_vision_tokens: int = 0
 
     dtype: str = "bfloat16"          # weight and activation dtype
+    param_dtype: str = "float32"     # master-weight dtype, unread (see above)
+    remat: bool = True               # activation checkpointing of each layer in training
     weight_sharding: str = "tp"      # sharding hint, unused without a mesh
     kv_seq_shard: bool = False       # sharding hint, unused without a mesh
 

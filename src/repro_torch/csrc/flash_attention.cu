@@ -52,8 +52,8 @@ constexpr int kBQ = kWarps * kRows;    // query rows per block
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk,
-                 int H, int KH, int causal, int window, float scale) {
+                 const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+                 int Sq, int Sk, int H, int KH, int causal, int window, float scale) {
   __shared__ float sq[kBQ][D];
   __shared__ KVTile<D> tile;
   __shared__ float sp[kWarps][kRows][kBK];
@@ -90,6 +90,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int r = 0; r < kRows; ++r) {
     const int row = row0 + r;
     if (row >= Sq) continue;
+    if (lse != nullptr && lane == 0) lse[(size_t(b) * H + h) * Sq + row] = m[r] + logf(l[r]);
     T* out = o + ((size_t(b) * Sq + row) * H + h) * D;
 #pragma unroll
     for (int c = 0; c < D / 32; ++c)
@@ -98,8 +99,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T>
-cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, int B,
-                     int Sq, int Sk, int H, int KH, int D, int causal, int window,
+cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, float* lse,
+                     int B, int Sq, int Sk, int H, int KH, int D, int causal, int window,
                      float scale, cudaStream_t stream) {
   const dim3 grid(cdiv(Sq, kBQ), H, B);
   const T* qp = static_cast<const T*>(q);
@@ -108,13 +109,13 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, int B
   T* op = static_cast<T*>(o);
   switch (D) {
     case 32:
-      flash_fwd_kernel<T, 32><<<grid, kThreads, 0, stream>>>(qp, kp, vp, op, Sq, Sk, H, KH, causal, window, scale);
+      flash_fwd_kernel<T, 32><<<grid, kThreads, 0, stream>>>(qp, kp, vp, op, lse, Sq, Sk, H, KH, causal, window, scale);
       break;
     case 64:
-      flash_fwd_kernel<T, 64><<<grid, kThreads, 0, stream>>>(qp, kp, vp, op, Sq, Sk, H, KH, causal, window, scale);
+      flash_fwd_kernel<T, 64><<<grid, kThreads, 0, stream>>>(qp, kp, vp, op, lse, Sq, Sk, H, KH, causal, window, scale);
       break;
     case 128:
-      flash_fwd_kernel<T, 128><<<grid, kThreads, 0, stream>>>(qp, kp, vp, op, Sq, Sk, H, KH, causal, window, scale);
+      flash_fwd_kernel<T, 128><<<grid, kThreads, 0, stream>>>(qp, kp, vp, op, lse, Sq, Sk, H, KH, causal, window, scale);
       break;
     default:
       return cudaErrorInvalidValue;
@@ -137,8 +138,9 @@ constexpr int mma_smem_bytes() { return (kBM + 2 * kKVStages * kKT) * D * 2; }  
 template <int D>
 __global__ void __launch_bounds__(32 * kFW)
 flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int Sq,
-                 int Sk, int H, int KH, int causal, int window, float scale) {
+                 const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+                 float* __restrict__ lse, int Sq, int Sk, int H, int KH, int causal, int window,
+                 float scale) {
   constexpr int CH = D / 8, NT = 32 * kFW;              // CH: 16-byte chunks per row
   extern __shared__ __align__(128) unsigned char smem[];
   auto qs = reinterpret_cast<__nv_bfloat16*>(smem);     // [kBM][D]
@@ -302,6 +304,9 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
     sum += __shfl_xor_sync(0xffffffffu, sum, 2);
     const int row = R0 + 16 * warp + g + 8 * h;
     if (row >= rows) continue;
+    // m is in base-2 units of the scaled scores (uniform over the quad)
+    if (lse != nullptr && qd == 0)
+      lse[(size_t(b) * H + kh * G + row % G) * Sq + row / G] = (m[h] + log2f(sum)) * kLn2;
     const float inv = 1.f / (sum + 1e-30f);
     __nv_bfloat16* out = o + ((size_t(b) * Sq + row / G) * H + kh * G + row % G) * D + 2 * qd;
 #pragma unroll
@@ -312,8 +317,8 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
 }
 
 template <int D>
-cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-                       int Sk, int H, int KH, int causal, int window, float scale,
+cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                       int Sq, int Sk, int H, int KH, int causal, int window, float scale,
                        cudaStream_t stream) {
   constexpr int smem = mma_smem_bytes<D>();
   static const cudaError_t attr = cudaFuncSetAttribute(
@@ -322,8 +327,8 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, int
   const dim3 grid(cdiv(Sq * (H / KH), kBM), KH, B);
   flash_mma_kernel<D><<<grid, 32 * kFW, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Sq, Sk, H, KH,
-      causal, window, scale);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, Sq, Sk, H,
+      KH, causal, window, scale);
   return cudaGetLastError();
 }
 
@@ -331,11 +336,14 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, int
 }  // namespace repro
 
 // q (B,Sq,H,D), k/v (B,Sk,KH,D), o (B,Sq,H,D), all contiguous and of one
-// dtype (repro::DType). variant 0 is the CUDA-core kernel (either dtype),
-// variant 1 the bf16 tensor-core kernel. Launches on `stream` of `device` and
-// returns cudaGetLastError() after the launch (0 on success).
+// dtype (repro::DType); lse (B,H,Sq) fp32 or null: where given, each row's
+// log-sum-exp of its kept scaled scores (natural log), which the backward
+// (flash_attention_bwd.cu) recomputes P from. variant 0 is the CUDA-core
+// kernel (either dtype), variant 1 the bf16 tensor-core kernel. Launches on
+// `stream` of `device` and returns cudaGetLastError() after the launch (0 on
+// success).
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v,
-                                     void* o, int B, int Sq, int Sk, int H, int KH,
+                                     void* o, float* lse, int B, int Sq, int Sk, int H, int KH,
                                      int D, int dtype, int causal, int window,
                                      float scale, int variant, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
@@ -345,16 +353,16 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
     if (dtype != repro::kBFloat16 || size_t(Sq) * (H / KH) > 0x7fffffff)
       return cudaErrorInvalidValue;
     switch (D) {
-      case 32: return repro::launch_mma<32>(q, k, v, o, B, Sq, Sk, H, KH, causal, window, scale, s);
-      case 64: return repro::launch_mma<64>(q, k, v, o, B, Sq, Sk, H, KH, causal, window, scale, s);
-      case 128: return repro::launch_mma<128>(q, k, v, o, B, Sq, Sk, H, KH, causal, window, scale, s);
+      case 32: return repro::launch_mma<32>(q, k, v, o, lse, B, Sq, Sk, H, KH, causal, window, scale, s);
+      case 64: return repro::launch_mma<64>(q, k, v, o, lse, B, Sq, Sk, H, KH, causal, window, scale, s);
+      case 128: return repro::launch_mma<128>(q, k, v, o, lse, B, Sq, Sk, H, KH, causal, window, scale, s);
       default: return cudaErrorInvalidValue;
     }
   }
   if (variant != 0) return cudaErrorInvalidValue;
   if (dtype == repro::kFloat32)
-    return repro::dispatch<float>(q, k, v, o, B, Sq, Sk, H, KH, D, causal, window, scale, s);
+    return repro::dispatch<float>(q, k, v, o, lse, B, Sq, Sk, H, KH, D, causal, window, scale, s);
   if (dtype == repro::kBFloat16)
-    return repro::dispatch<__nv_bfloat16>(q, k, v, o, B, Sq, Sk, H, KH, D, causal, window, scale, s);
+    return repro::dispatch<__nv_bfloat16>(q, k, v, o, lse, B, Sq, Sk, H, KH, D, causal, window, scale, s);
   return cudaErrorInvalidValue;
 }

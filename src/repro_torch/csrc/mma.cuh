@@ -62,6 +62,7 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
 }
 
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // 2^x (MUFU.EX2; flushes subnormal results to zero).
 __device__ __forceinline__ float ex2(float x) {

@@ -2,6 +2,9 @@
 
 A CUDA tensor goes to a hand-written kernel (``csrc/decode_attention.cu``)
 or the call raises; a CPU tensor goes to the plain version in ``ref.py``.
+The kernel has no backward: a CUDA call that would need one (grad mode on
+and an input that requires grad) raises NotImplementedError, where the
+plain version on the CPU stays differentiable.
 ``decode_attention.launches`` counts kernel launches, and nothing else.
 
 bf16 goes to the split-KV kernel: ``split_count`` picks its splits per
@@ -95,6 +98,10 @@ def decode_attention(q, k_cache, v_cache, lengths, *, scale=None, window=0):
         return _ref.decode_attention_reference(q, k_cache, v_cache, lengths,
                                                scale=scale, window=window)
 
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k_cache, v_cache)):
+        raise NotImplementedError("decode_attention: the CUDA kernel has no backward; "
+                                  "call it under torch.no_grad() or with inputs that "
+                                  "do not require grad")
     if D not in HEAD_DIMS:
         raise ValueError(f"decode_attention: head dim {D} not in {HEAD_DIMS}")
     if H // KH > MAX_GROUP or B > 65535:

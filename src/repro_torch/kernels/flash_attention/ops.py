@@ -1,12 +1,20 @@
-"""Public flash-attention entry point.
+"""Public flash-attention entry points: the forward and its backward.
 
-A CUDA tensor goes to a hand-written kernel (``csrc/flash_attention.cu``)
-or the call raises; a CPU tensor goes to the plain version in ``ref.py``.
-``flash_attention.launches`` counts kernel launches, and nothing else.
+A CUDA tensor goes to a hand-written kernel (``csrc/flash_attention.cu``,
+``csrc/flash_attention_bwd.cu``) or the call raises; a CPU tensor goes to
+the plain versions in ``ref.py``. ``flash_attention.launches`` counts
+forward kernel launches and ``flash_attention_bwd.launches`` backward ones,
+and nothing else.
 
-bf16 goes to the tensor-core kernel, whose blocks serve all query heads of
-one KV head; fp32 to the CUDA-core kernel, which keeps the fp32 sweeps'
-2e-5.
+bf16 goes to the tensor-core kernels, whose blocks serve all query heads of
+one KV head; fp32 to the CUDA-core kernels, which keep the fp32 sweeps'
+2e-5 and the gradient check's 1e-4.
+
+Where q, k or v requires grad (and grad mode is on), the forward runs inside
+``_FlashAttention``, a ``torch.autograd.Function``: it also writes each
+row's log-sum-exp, and its backward runs the backward kernel on it. Under
+``torch.utils.checkpoint`` the forward runs again in the backward pass, and
+the Function saves that run's LSE.
 """
 from __future__ import annotations
 
@@ -20,17 +28,99 @@ from repro_torch.kernels.common import (DTYPE_CODES, HEAD_DIMS, check_aligned,
                                         check_launch, check_operands, kernel_route)
 from repro_torch.kernels.flash_attention import ref as _ref
 
-VARIANTS = {"fma": 0, "mma": 1}   # the C entry point's `variant`
+VARIANTS = {"fma": 0, "mma": 1}   # the C entry points' `variant`
 
 
 @lru_cache(None)
 def _lib():
     lib = build.load("flash_attention")
     fn = lib.repro_flash_attention
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + \
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + \
         [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@lru_cache(None)
+def _bwd_lib():
+    lib = build.load("flash_attention_bwd")
+    fn = lib.repro_flash_attention_bwd
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + \
+        [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_shapes(what, q, k, v, window):
+    """The route, after the shape checks every entry point shares."""
+    route = kernel_route(q, k, v)
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"{what}: bad shapes q{tuple(q.shape)} "
+                         f"k{tuple(k.shape)} v{tuple(v.shape)}")
+    B, Sq, H, D = q.shape
+    Bk, Sk, KH, Dk = k.shape
+    if Bk != B or Dk != D or H % KH:
+        raise ValueError(f"{what}: q{tuple(q.shape)} does not match "
+                         f"k/v{tuple(k.shape)} (need equal B, D and H % KH == 0)")
+    if window < 0:
+        raise ValueError(f"{what}: window {window} < 0")
+    return route
+
+
+def _check_cuda(what, q, *tensors):
+    B, _, H, D = q.shape
+    if D not in HEAD_DIMS:
+        raise ValueError(f"{what}: head dim {D} not in {HEAD_DIMS}")
+    if B > 65535 or H > 65535:
+        raise ValueError(f"{what}: B={B}, H={H} exceed the grid limit")
+    check_aligned(what, q, *tensors)
+
+
+def _scale(scale, D):
+    return scale if scale is not None else D ** -0.5
+
+
+def _forward(route, q, k, v, causal, window, scale, with_lse):
+    """(out, lse or None); lse (B, H, Sq) fp32 only if ``with_lse``."""
+    if route == "cpu":
+        out = _ref.mha_reference(q, k, v, causal=causal, window=window, scale=scale)
+        if not with_lse:
+            return out, None
+        # contiguous, as the kernel's output is, for the backward's checks
+        return out.contiguous(), _ref.lse_reference(q, k, causal=causal, window=window,
+                                                    scale=scale)
+    _check_cuda("flash_attention", q, k, v)
+    B, Sq, H, D = q.shape
+    Sk, KH = k.shape[1:3]
+    out = torch.empty_like(q)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) if with_lse else None
+    err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 None if lse is None else lse.data_ptr(),
+                 B, Sq, Sk, H, KH, D, DTYPE_CODES[q.dtype], int(causal), int(window),
+                 _scale(scale, D), VARIANTS["mma" if q.dtype == torch.bfloat16 else "fma"],
+                 q.device.index, torch.cuda.current_stream(q.device).cuda_stream)
+    check_launch(err, "flash_attention kernel launch")
+    flash_attention.launches += 1
+    return out, lse
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The forward kernel with its LSE saved; the backward kernel as the VJP."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        out, lse = _forward(kernel_route(q, k, v), q, k, v, causal, window, scale, True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, window, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, window, scale = ctx.args
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout.contiguous(),
+                                         causal=causal, window=window, scale=scale)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
@@ -38,37 +128,52 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     """q: (B, Sq, H, D); k/v: (B, Sk, KH, D) -> (B, Sq, H, D).
 
     Any Sq and Sk; query i sits at absolute position Sk - Sq + i.
+    Differentiable in q, k and v, except causal with Sq > Sk.
     """
-    route = kernel_route(q, k, v)
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError(f"flash_attention: bad shapes q{tuple(q.shape)} "
-                         f"k{tuple(k.shape)} v{tuple(v.shape)}")
-    B, Sq, H, D = q.shape
-    Bk, Sk, KH, Dk = k.shape
-    if Bk != B or Dk != D or H % KH:
-        raise ValueError(f"flash_attention: q{tuple(q.shape)} does not match "
-                         f"k/v{tuple(k.shape)} (need equal B, D and H % KH == 0)")
-    if window < 0:
-        raise ValueError(f"flash_attention: window {window} < 0")
+    route = _check_shapes("flash_attention", q, k, v, window)
     check_operands("flash_attention", q, k, v)
-    if route == "cpu":
-        return _ref.mha_reference(q, k, v, causal=causal, window=window,
-                                  scale=scale)
-
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {D} not in {HEAD_DIMS}")
-    if B > 65535 or H > 65535:
-        raise ValueError(f"flash_attention: B={B}, H={H} exceed the grid limit")
-    check_aligned("flash_attention", q, k, v)
-    variant = "mma" if q.dtype == torch.bfloat16 else "fma"
-    out = torch.empty_like(q)
-    err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 B, Sq, Sk, H, KH, D, DTYPE_CODES[q.dtype], int(causal),
-                 int(window), scale if scale is not None else D ** -0.5, VARIANTS[variant],
-                 q.device.index, torch.cuda.current_stream(q.device).cuda_stream)
-    check_launch(err, "flash_attention kernel launch")
-    flash_attention.launches += 1
-    return out
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        if causal and q.shape[1] > k.shape[1]:
+            raise ValueError(f"flash_attention: no backward for causal Sq={q.shape[1]} > "
+                             f"Sk={k.shape[1]} (a query would keep no key)")
+        return _FlashAttention.apply(q, k, v, causal, window, scale)
+    return _forward(route, q, k, v, causal, window, scale, False)[0]
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True, window: int = 0,
+                        scale: float | None = None):
+    """(dq, dk, dv), the VJP of ``flash_attention`` at (q, k, v) for the
+    cotangent ``dout``; ``out`` and ``lse`` (B, H, Sq) fp32 are the forward's.
+    Causal needs Sq <= Sk, so that every query keeps a key."""
+    route = _check_shapes("flash_attention_bwd", q, k, v, window)
+    check_operands("flash_attention_bwd", q, k, v, out, dout)
+    B, Sq, H, D = q.shape
+    Sk, KH = k.shape[1:3]
+    if out.shape != q.shape or dout.shape != q.shape or (causal and Sq > Sk):
+        raise ValueError(f"flash_attention_bwd: out{tuple(out.shape)} and "
+                         f"dout{tuple(dout.shape)} must match q{tuple(q.shape)}, "
+                         f"and causal Sq={Sq} must not exceed Sk={Sk}")
+    if lse.shape != (B, H, Sq) or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError(f"flash_attention_bwd: lse must be contiguous fp32 {(B, H, Sq)}, "
+                         f"got {lse.dtype}{tuple(lse.shape)}")
+    if route == "cpu":
+        return _ref.mha_backward_reference(q, k, v, dout, causal=causal, window=window,
+                                           scale=scale)
+    _check_cuda("flash_attention_bwd", q, k, v, out, dout)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    err = _bwd_lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+                     lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                     dv.data_ptr(), B, Sq, Sk, H, KH, D, DTYPE_CODES[q.dtype], int(causal),
+                     int(window), _scale(scale, D),
+                     VARIANTS["mma" if q.dtype == torch.bfloat16 else "fma"], q.device.index,
+                     torch.cuda.current_stream(q.device).cuda_stream)
+    check_launch(err, "flash_attention_bwd kernel launch")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0

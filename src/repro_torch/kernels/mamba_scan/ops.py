@@ -3,7 +3,11 @@
 ``ssd_scan``: a CUDA tensor goes to a hand-written kernel
 (``csrc/mamba_scan.cu``) or the call raises; a CPU tensor goes to the plain
 chunked version in ``ref.py``. ``ssd_scan.launches`` counts kernel launches,
-and nothing else. bf16 x/B/C go to the tensor-core kernel where
+and nothing else. The kernel has no backward yet (the reference's
+``_ssd_bwd`` is still to port): a CUDA call that would need one (grad mode
+on and an input that requires grad) raises NotImplementedError, where the
+plain version on the CPU stays differentiable. bf16 x/B/C go to the
+tensor-core kernel where
 ``takes_mma`` holds (P and the strides of x, B and C multiples of 8, the
 operands 16-byte aligned, as the model's conv-buffer slices are); fp32, and
 bf16 operands it does not take, to the CUDA-core kernel. ``decode_step`` is the one-token recurrence, plain torch
@@ -74,6 +78,11 @@ def ssd_scan(x, dt, A, Bmat, Cmat, D, init_state=None, *, with_state=False):
         y, state = _ref.ssd_chunked_reference(x, dt, A, Bmat, Cmat, D, init_state)
         return (y, state) if with_state else y
 
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, A, Bmat, Cmat, D,
+                                                                  *state_in)):
+        raise NotImplementedError("ssd_scan: the CUDA kernel has no backward yet (the "
+                                  "SSD scan's gradient is not ported); call it under "
+                                  "torch.no_grad() or with inputs that do not require grad")
     if N not in STATE_DIMS:
         raise ValueError(f"ssd_scan: state size {N} not in {STATE_DIMS}")
     if Bsz > 65535 or H > 65535:

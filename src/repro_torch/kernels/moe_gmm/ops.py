@@ -1,11 +1,20 @@
-"""Public grouped-matmul entry point for the MoE experts (inference only).
+"""Public grouped-matmul entry points for the MoE experts: the product and
+its two gradients.
 
 A CUDA tensor goes to a hand-written kernel (``csrc/moe_gmm.cu``) or the
-call raises; a CPU tensor goes to the plain version in ``ref.py``.
-``grouped_matmul.launches`` counts kernel launches, and nothing else.
+call raises; a CPU tensor goes to the plain versions in ``ref.py``.
+``grouped_matmul.launches`` counts the product's kernel launches,
+``grouped_matmul_dx.launches`` and ``grouped_matmul_dw.launches`` those of
+its gradients, and nothing else.
 
 bf16 operands with 16-byte rows (``takes_mma``) go to the tensor-core
 kernel, everything else to the CUDA-core kernel.
+
+Where x or w requires grad (and grad mode is on), the product runs inside
+``_GroupedMatmul``, a ``torch.autograd.Function`` whose backward is the VJP
+of ``ref.gmm_reference`` (the JAX package's rule, ``_gmm_bwd``): dx = g w^T
+and dw = x^T g, both grouped matmuls on the same kernel, over contiguous
+transposes of w and x.
 """
 from __future__ import annotations
 
@@ -37,17 +46,8 @@ def _lib():
     return fn
 
 
-def grouped_matmul(x, w):
-    """x: (E, C, d); w: (E, d, f) -> (E, C, f) in x's dtype, with fp32
-    accumulation. Any C, d and f."""
-    route = kernel_route(x, w)
-    if x.dim() != 3 or w.dim() != 3 or w.shape[:2] != x.shape[::2]:
-        raise ValueError(f"grouped_matmul: x{tuple(x.shape)} and w{tuple(w.shape)} "
-                         "must be (E, C, d) and (E, d, f)")
-    check_operands("grouped_matmul", x, w)
-    if route == "cpu":
-        return _ref.gmm_reference(x, w)
-
+def _launch(x, w):
+    """The kernel on x (E, C, d) and w (E, d, f), checked, on the card."""
     E, C, d = x.shape
     f = w.shape[2]
     if E > 65535:
@@ -60,8 +60,83 @@ def grouped_matmul(x, w):
         VARIANTS[variant], x.device.index,
         torch.cuda.current_stream(x.device).cuda_stream)
     check_launch(err, "grouped_matmul kernel launch")
+    return out
+
+
+class _GroupedMatmul(torch.autograd.Function):
+    """The product on the kernel; dx and dw on the same kernel as its VJP."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _product(kernel_route(x, w), x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.contiguous()
+        dx = grouped_matmul_dx(g, w) if ctx.needs_input_grad[0] else None
+        dw = grouped_matmul_dw(x, g) if ctx.needs_input_grad[1] else None
+        return dx, dw
+
+
+def _product(route, x, w):
+    if route == "cpu":
+        return _ref.gmm_reference(x, w)
+    out = _launch(x, w)
     grouped_matmul.launches += 1
     return out
 
 
+def grouped_matmul(x, w):
+    """x: (E, C, d); w: (E, d, f) -> (E, C, f) in x's dtype, with fp32
+    accumulation. Any C, d and f; differentiable in x and w."""
+    route = kernel_route(x, w)
+    if x.dim() != 3 or w.dim() != 3 or w.shape[:2] != x.shape[::2]:
+        raise ValueError(f"grouped_matmul: x{tuple(x.shape)} and w{tuple(w.shape)} "
+                         "must be (E, C, d) and (E, d, f)")
+    check_operands("grouped_matmul", x, w)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _GroupedMatmul.apply(x, w)
+    return _product(route, x, w)
+
+
 grouped_matmul.launches = 0
+
+
+def grouped_matmul_dx(g, w):
+    """g: (E, C, f); w: (E, d, f) -> dx = g w^T (E, C, d) in g's dtype: the
+    gradient of ``grouped_matmul`` in x. The kernel takes w^T as a
+    contiguous (E, f, d) copy."""
+    route = kernel_route(g, w)
+    if g.dim() != 3 or w.dim() != 3 or g.shape[0] != w.shape[0] or g.shape[2] != w.shape[2]:
+        raise ValueError(f"grouped_matmul_dx: g{tuple(g.shape)} and w{tuple(w.shape)} "
+                         "must be (E, C, f) and (E, d, f)")
+    check_operands("grouped_matmul_dx", g, w)
+    if route == "cpu":
+        return _ref.gmm_dx_reference(g, w)
+    out = _launch(g, w.transpose(1, 2).contiguous())
+    grouped_matmul_dx.launches += 1
+    return out
+
+
+grouped_matmul_dx.launches = 0
+
+
+def grouped_matmul_dw(x, g):
+    """x: (E, C, d); g: (E, C, f) -> dw = x^T g (E, d, f) in x's dtype: the
+    gradient of ``grouped_matmul`` in w, a sum over the C capacity rows. The
+    kernel takes x^T as a contiguous (E, d, C) copy."""
+    route = kernel_route(x, g)
+    if x.dim() != 3 or g.dim() != 3 or x.shape[:2] != g.shape[:2]:
+        raise ValueError(f"grouped_matmul_dw: x{tuple(x.shape)} and g{tuple(g.shape)} "
+                         "must be (E, C, d) and (E, C, f)")
+    check_operands("grouped_matmul_dw", x, g)
+    if route == "cpu":
+        return _ref.gmm_dw_reference(x, g)
+    out = _launch(x.transpose(1, 2).contiguous(), g)
+    grouped_matmul_dw.launches += 1
+    return out
+
+
+grouped_matmul_dw.launches = 0

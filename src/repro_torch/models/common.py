@@ -7,6 +7,7 @@ import math
 from typing import Any, Dict, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 VOCAB_PAD = 256
 
@@ -47,9 +48,24 @@ def flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
 
 def layer_views(stacked: Dict[str, Any], n: int):
     """Per-layer views of a tree of params stacked along a leading axis of
-    ``n`` layers."""
-    flat = flatten(stacked)
-    return [nest({k: v[i] for k, v in flat.items()}) for i in range(n)]
+    ``n`` layers. Each leaf is cut by one ``unbind``, so in training the
+    layers' gradients go back to the stacked tensor in one stack."""
+    flat = {k: v.unbind(0) for k, v in flatten(stacked).items()}
+    return [nest({k: views[i] for k, views in flat.items()}) for i in range(n)]
+
+
+def remat(cfg, fn, *args):
+    """``fn(*args)``, under activation checkpointing when ``cfg.remat`` is set
+    and a gradient is being taken (grad mode on, and a tensor among the
+    args, or in a dict of them, requires grad), as the JAX package wraps its
+    scanned layer body in ``jax.checkpoint``: the layer's activations are not
+    kept, and its forward runs again in the backward pass."""
+    if cfg.remat and torch.is_grad_enabled() and any(
+            t.requires_grad for a in args
+            for t in (flatten(a).values() if isinstance(a, dict) else (a,))
+            if isinstance(t, torch.Tensor)):
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 # ---------------------------------------------------------------- init utils
@@ -156,3 +172,18 @@ def unembed(p, cfg, x):
     if w is None:
         w = p["embed"].T
     return x @ w
+
+
+# -------------------------------------------------------------------- loss
+def cross_entropy(logits, labels, vocab_size: int):
+    """Mean cross entropy over the valid labels (0 <= label < vocab_size),
+    in fp32 over the (possibly padded) vocab axis of ``logits``; other
+    labels are masked out, and the mean is over the valid ones (at least
+    one)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    labels = labels.long()
+    mask = (labels >= 0) & (labels < vocab_size)
+    ll = logits.gather(-1, torch.where(mask, labels, 0)[..., None])[..., 0]
+    nll = torch.where(mask, lse - ll, 0.0)
+    return nll.sum() / mask.sum().clamp(min=1)

@@ -2,7 +2,9 @@
 
 Layers are stacked along a leading axis, as in the JAX package, and run
 in a Python loop over per-layer views. Decode updates the KV cache in
-place.
+place. In training (grad mode on) each layer of ``forward`` runs under
+activation checkpointing when ``cfg.remat`` is set, as the JAX package
+checkpoints its scanned layer body.
 """
 from __future__ import annotations
 
@@ -130,7 +132,7 @@ def forward(params, cfg, batch):
     h, positions, mrope_pos = _positions_and_embeds(params, cfg, batch)
     aux = 0.0
     for lp in _layers(params, cfg):
-        h, a = layer_forward(lp, cfg, h, positions, mrope_pos)
+        h, a = cm.remat(cfg, layer_forward, lp, cfg, h, positions, mrope_pos)
         aux = aux + a
     h = cm.rmsnorm(h, params["ln_f"], cfg.norm_eps)
     return cm.unembed(params["emb"], cfg, h), aux

@@ -8,7 +8,10 @@ cross-attention into the encoder output; decode caches the self K/V
 attention sites run in the hand-written kernels: the encoder and the
 cross-attention of a prompt in flash without a causal mask (Sq = Sk =
 enc_seq, and Sq = prompt against Sk = enc_seq), a decode step's
-cross-attention in decode attention over all enc_seq frames.
+cross-attention in decode attention over all enc_seq frames. In training
+(grad mode on) each decoder layer runs under activation checkpointing when
+``cfg.remat`` is set, as in the JAX package (its encoder layers are not
+checkpointed there either).
 """
 from __future__ import annotations
 
@@ -100,15 +103,21 @@ def _decoder(params, cfg, batch):
     positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
     kvs = []
     for lp in cm.layer_views(params["dec_layers"], cfg.n_layers):
-        a, (k, v) = attn.attn_prefill(lp["attn"], cfg, cm.rmsnorm(h, lp["ln1"], cfg.norm_eps),
-                                      positions)
-        h = h + a
-        kx, vx = _cross_kv(lp, cfg, enc)
-        h = h + attn.attn_forward(lp["xattn"], cfg, cm.rmsnorm(h, lp["ln_x"], cfg.norm_eps),
-                                  causal=False, kv=(kx, vx))
-        h = h + mlp_mod.mlp_forward(lp["mlp"], cfg, cm.rmsnorm(h, lp["ln2"], cfg.norm_eps))
-        kvs.append((k, v, kx, vx))
+        h, kv = cm.remat(cfg, _dec_layer, lp, cfg, h, enc, positions)
+        kvs.append(kv)
     return h, kvs
+
+
+def _dec_layer(lp, cfg, h, enc, positions):
+    """One decoder layer over the prompt: (h, (self K, self V, cross K, cross V))."""
+    a, (k, v) = attn.attn_prefill(lp["attn"], cfg, cm.rmsnorm(h, lp["ln1"], cfg.norm_eps),
+                                  positions)
+    h = h + a
+    kx, vx = _cross_kv(lp, cfg, enc)
+    h = h + attn.attn_forward(lp["xattn"], cfg, cm.rmsnorm(h, lp["ln_x"], cfg.norm_eps),
+                              causal=False, kv=(kx, vx))
+    h = h + mlp_mod.mlp_forward(lp["mlp"], cfg, cm.rmsnorm(h, lp["ln2"], cfg.norm_eps))
+    return h, (k, v, kx, vx)
 
 
 def forward(params, cfg, batch):

@@ -45,7 +45,7 @@ def test_config_copies_match_the_reference(arch):
                   "n_kv_heads", "d_ff", "vocab_size", "resolved_head_dim",
                   "qkv_bias", "rope", "rope_theta", "sliding_window",
                   "norm_eps", "tie_embeddings", "dtype", "n_experts", "top_k",
-                  "moe_capacity_factor", "moe_impl"):
+                  "moe_capacity_factor", "moe_impl", "param_dtype", "remat"):
             assert getattr(ours, f) == getattr(theirs, f), (arch, f)
 
 
