@@ -7,8 +7,10 @@ Phases; any failure exits non-zero and no phase's failure is caught:
   1. device: the card's name and power limit; build every kernel from
      src/repro_torch/csrc (one nvcc per source, all at once), print each
      kernel's registers and spills, and check the SASS of the bf16 kernels:
-     HMMA and LDGSTS in flash, the grouped matmul and the SSD scan, LDGSTS
-     in split-KV decode.
+     HMMA and LDGSTS in flash (forward and backward), the grouped matmul and
+     the SSD scan, HGMMA and UTMALDG in the grouped GEMM (the gmm's
+     gradients and its forward at training capacities), LDGSTS in split-KV
+     decode.
   2. kernels: each CUDA kernel against its plain PyTorch version on the
      card, at the served models' shapes and ragged ones (attention fp32
      2e-5, bf16 2e-2; grouped matmul fp32 1e-4, bf16 atol 1e-1 / rtol 5e-2;
@@ -32,7 +34,9 @@ Phases; any failure exits non-zero and no phase's failure is caught:
      decode at the serving cache (Smax 256; glm4-9b's B=4, Smax 128), at
      Smax 4096 with every length full (B 1 and 8) and at whisper-base's
      cross cache (B=8, Smax 1500, 3 splits), the grouped matmul at C = 4,
-     8, 16 and 64, the SSD scan at S = 64, 256 and 1000.
+     8, 16 and 64 and at the training capacities C = 256 and 512 (there on
+     the grouped GEMM, beside gmm_mma_kernel), the SSD scan at S = 64, 256
+     and 1000.
      The backward kernels the same way: the flash backward (dq, dk, dv) and
      the forward's LSE at qwen2-1.5b's, granite-moe-3b-a800m's and
      glm4-9b's heads (6, 3 and 16 query heads per KV head), a window, Sq <
@@ -40,9 +44,13 @@ Phases; any failure exits non-zero and no phase's failure is caught:
      bf16 2e-2 with atol in units of each gradient row's RMS above 1, and within
      1e-2 of the fp32 plain backward's norm),
      bit for bit the same through autograd and under a checkpoint; the
-     grouped matmul's dx and dw (fp32 1e-5, bf16 atol 1e-1 / rtol 5e-2).
+     grouped matmul's dx and dw (fp32 1e-5, bf16 atol 1e-1 / rtol 5e-2),
+     at ragged shapes, past the GEMM's 128-row and 128-column tile edges and
+     its 64-deep K steps, and at training capacities.
      Timed at the train phase's shapes beside the plain versions, SDPA's
-     backward through autograd and torch.bmm (timed here only).
+     backward through autograd and torch.bmm (timed here only); dx and dw
+     also beside the earlier path (a contiguous transposed copy of w or x,
+     then the forward kernel: before_ms) and that copy alone (copy_ms).
   3. parity: qwen2-1.5b, granite-moe-3b-a800m, qwen2-vl-2b (256 vision
      tokens) and glm4-9b at full width cut to 2 layers, whisper-base cut
      to 2 encoder and 2 decoder layers over its 1500 frames, and
@@ -81,7 +89,8 @@ Phases; any failure exits non-zero and no phase's failure is caught:
      granite also 6 grouped matmuls, 3 dx, 3 dw); step times, tokens/s,
      peak memory, and one profiled step of each.
 The line before the last is a JSON object with every kernel's numbers
-(before_ms: the earlier CUDA-core kernel on the same inputs): attention and
+(before_ms: the earlier kernel on the same inputs: the CUDA-core kernel of
+the forward kernels, the earlier copy-then-gmm path of dx and dw): attention and
 grouped matmul at granite-moe-3b-a800m's shapes with their launches from
 granite's poisson5 run, the SSD scan at zamba2-1.2b's prefill shape with its
 launches from zamba2's poisson5 run, the flash backward and the grouped
@@ -224,13 +233,15 @@ def _demangle(name):
     return full.removeprefix("void ") or name
 
 
-# The bf16 kernels must stage their tiles with asynchronous copies (LDGSTS),
-# and those built on the tensor cores must run there (HMMA).
-SASS_CHECKS = {"moe_gmm": ("gmm_mma_kernel", ("HMMA", "LDGSTS")),
-               "flash_attention": ("flash_mma_kernel", ("HMMA", "LDGSTS")),
-               "flash_attention_bwd": ("mma_kernel", ("HMMA", "LDGSTS")),
-               "mamba_scan": ("ssd_mma_kernel", ("HMMA", "LDGSTS")),
-               "decode_attention": ("decode_split_kernel", ("LDGSTS",))}
+# The bf16 kernels must stage their tiles with asynchronous copies (LDGSTS,
+# or TMA: UTMALDG), and those built on the tensor cores must run there
+# (HMMA, or wgmma: HGMMA).
+SASS_CHECKS = [("moe_gmm", "gmm_mma_kernel", ("HMMA", "LDGSTS")),
+               ("moe_gmm", "gmm_tiled_kernel", ("HGMMA", "UTMALDG")),
+               ("flash_attention", "flash_mma_kernel", ("HMMA", "LDGSTS")),
+               ("flash_attention_bwd", "mma_kernel", ("HMMA", "LDGSTS")),
+               ("mamba_scan", "ssd_mma_kernel", ("HMMA", "LDGSTS")),
+               ("decode_attention", "decode_split_kernel", ("LDGSTS",))]
 
 
 def _sass_check(libs):
@@ -238,7 +249,7 @@ def _sass_check(libs):
     the built library); fail if any instantiation lacks one."""
     from repro_torch.kernels import build
     cuobjdump = Path(build.nvcc()).with_name("cuobjdump")
-    for lib, (kernel, ops) in SASS_CHECKS.items():
+    for lib, kernel, ops in SASS_CHECKS:
         sass = subprocess.run([str(cuobjdump), "-sass", str(libs[lib])], capture_output=True,
                               text=True, check=True, timeout=300).stdout
         counts = {}
@@ -653,6 +664,8 @@ def _gmm_row(E, C, d, f, gen, flush):
 
     x, w = _randn(gen, E, C, d, dtype=torch.bfloat16), _randn(gen, E, d, f, dtype=torch.bfloat16)
     bound, by = _bound(2 * (x.numel() + w.numel() + E * C * f), 2 * E * C * d * f)
+    extra = {"mma_ms": _time_ms(lambda: gmm_ops._launch(x, w), flush)} \
+        if gmm_ops.route(x.dtype, C, d, f, True) == "tiled" else {}
     return {"name": "grouped_matmul", "route": "cuda",
             "source": "src/repro_torch/csrc/moe_gmm.cu",
             "replaces": "src/repro/kernels/moe_gmm/kernel.py:49",
@@ -662,7 +675,7 @@ def _gmm_row(E, C, d, f, gen, flush):
             "bound_ms": bound, "bound_by": by,
             "library_ms": _time_ms(lambda: torch.bmm(x, w), flush),
             "host_us": _host_us(lambda: gmm_ops.grouped_matmul(x, w)),
-            "shape": f"E={E} C={C} d={d} f={f} bf16"}
+            "shape": f"E={E} C={C} d={d} f={f} bf16", **extra}
 
 
 def _gmm_before(x, w):
@@ -696,6 +709,10 @@ def _gmm_kernel(gen, flush):
     from repro_torch.kernels.moe_gmm import ref as gmm_ref
 
     serving = [(40, c, d, f) for c in (1, 4, 8, 16, 17, 64) for d, f in ((1536, 512), (512, 1536))]
+    # training capacities (on the grouped GEMM from TILED_MIN_C rows) and
+    # shapes past its tile edges
+    training = [(40, c, d, f) for c in (128, 256) for d, f in ((1536, 512), (512, 1536))] + \
+        [(2, 130, 136, 264), (1, 200, 264, 136)]
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
         # the repo's sweep, ragged d (104: a partial last d tile), a long d
@@ -704,7 +721,7 @@ def _gmm_kernel(gen, flush):
         cases = [(2, 32, 16, 16, True), (4, 64, 96, 160, True), (8, 128, 128, 128, True),
                  (3, 5, 96, 160, True), (2, 37, 64, 12, True), (2, 16, 8, 12, True),
                  (3, 17, 104, 136, True), (2, 9, 1024, 72, True), (4, 64, 96, 160, False)] + \
-            [c + (True,) for c in serving]
+            [c + (True,) for c in serving + training]
         for E, C, d, f, aligned in cases:
             x = _randn(gen, E, C, d, dtype=dtype)
             w = _randn(gen, E * d * f + 1, dtype=dtype) * d ** -0.5
@@ -715,9 +732,10 @@ def _gmm_kernel(gen, flush):
             errs[dtype] = max(errs.get(dtype, 0.0), _check(
                 f"gmm {dtype} E={E} C={C} d={d} f={f} aligned={aligned}",
                 out, want, **GMM_TOL[dtype]))
-        n_mma = sum(gmm_ops.takes_mma(dtype, d, f, aligned) for _, _, d, f, aligned in cases)
-        print(f"[kernels] grouped_matmul {str(dtype)[6:]}: {len(cases)} cases ({n_mma} on the "
-              f"tensor-core kernel) match the plain version, max abs err {errs[dtype]:.3e}")
+        routes = [gmm_ops.route(dtype, C, d, f, aligned) for _, C, d, f, aligned in cases]
+        print(f"[kernels] grouped_matmul {str(dtype)[6:]}: {len(cases)} cases ({routes.count('mma')} "
+              f"on gmm_mma_kernel, {routes.count('tiled')} on the grouped GEMM) match the plain "
+              f"version, max abs err {errs[dtype]:.3e}")
 
     # granite-moe-3b-a800m decode: 8 slots -> capacity 4 per expert; the
     # gate/up products (d=1536 -> f=512) are two of each layer's three calls.
@@ -728,6 +746,14 @@ def _gmm_kernel(gen, flush):
     # capacities (C=16 at the 64-token bucket, C=64 at the 256-token one).
     for E, C, d, f in GMM_TIMED[1:]:
         _print_gmm(_gmm_row(E, C, d, f, gen, flush))
+    # The training capacities, on the grouped GEMM, beside gmm_mma_kernel
+    # (the route below TILED_MIN_C) on the same operands.
+    for E, C, d, f in GMM_BWD_TIMED:
+        r = _gmm_row(E, C, d, f, gen, flush)
+        print(f"[kernels] grouped_matmul ({gmm_ops.route(torch.bfloat16, C, d, f, True)}) at "
+              f"{MAIN_ARCH}'s training {r['shape']}: kernel {r['ms']:.4f} ms (gmm_mma_kernel: "
+              f"{r['mma_ms']:.4f}), plain {r['plain_ms']:.4f} ms, bmm {r['library_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}); host enqueue {r['host_us']:.1f} us/call")
     return gmm
 
 
@@ -753,7 +779,7 @@ def _flash_bwd_cases():
     head) from one token to the train phase's 512, a ragged 100 that no tile
     divides, a window, Sq < Sk with and without one; whisper-base's heads
     without a mask (its cross-attention against 1500 frames, and a ragged
-    300); D=32."""
+    300); D=32; the CPU tests' shapes."""
     cases = []
     for H, KH, D in ((12, 2, 128), (24, 8, 64), (32, 2, 128)):
         cases += [(H, KH, D, s, s, True, 0) for s in (1, 64, 100, 512)]
@@ -762,6 +788,10 @@ def _flash_bwd_cases():
     cases += [(8, 8, 64, s, 1500, False, 0) for s in (16, 64)]
     cases += [(8, 8, 64, 300, 300, False, 0), (4, 2, 32, 48, 48, True, 16),
               (6, 6, 32, 80, 80, True, 0)]
+    # tests/test_torch_train_kernels.py's shapes with 6 query heads per KV
+    # head at D = 64 and 128
+    cases += [(12, 2, 128, 128, 128, True, 0), (6, 1, 64, 64, 64, True, 16),
+              (6, 1, 128, 64, 128, True, 0)]
     return cases
 
 
@@ -864,7 +894,8 @@ def _flash_bwd_row(arch, B, S, gen, flush):
 
 
 def _print_bwd(what, r):
-    print(f"[kernels] {r['name']} at {what}'s {r['shape']}: kernel {r['ms']:.4f} ms, "
+    before = f" (before: {r['before_ms']:.4f}, its copy {r['copy_ms']:.4f})" if "before_ms" in r else ""
+    print(f"[kernels] {r['name']} at {what}'s {r['shape']}: kernel {r['ms']:.4f} ms{before}, "
           f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
           f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}); host enqueue {r['host_us']:.1f} us/call")
 
@@ -878,16 +909,21 @@ GMM_BWD_TIMED = [(40, c, d, f) for c in (256, 512) for d, f in ((1536, 512), (51
 def _gmm_bwd_kernel(gen, flush):
     """The grouped matmul's gradients against their plain versions: the
     repo's gradient-check shape, ragged shapes (on the CUDA-core kernel: d or
-    f not a multiple of 8, or a capacity that is not, which dw contracts
-    over), a decode-size capacity and the train phase's; fp32 and bf16.
+    f not a multiple of 8), capacities that are not multiples of 8 (which dw
+    contracts over), shapes past the GEMM's tile edges, a decode-size
+    capacity and the train phase's; fp32 and bf16.
     Through autograd the gradients are the kernels', bit for bit. Then dx and
     dw timed at granite's training capacities beside the plain versions and
     torch.bmm on the same operands."""
     from repro_torch.kernels.moe_gmm import ops as gmm_ops
     from repro_torch.kernels.moe_gmm import ref as gmm_ref
 
+    # the last three: tests/test_torch_train_kernels.py's shapes past the
+    # GEMM's tile edges (C, d and f past 128 rows and columns and past the K
+    # steps of 64), then at granite's width
     cases = [(2, 16, 8, 12), (3, 17, 104, 136), (2, 37, 64, 12), (4, 100, 96, 160),
-             (40, 9, 1536, 512), (40, 256, 1536, 512), (40, 256, 512, 1536), (40, 512, 1536, 512)]
+             (40, 9, 1536, 512), (40, 256, 1536, 512), (40, 256, 512, 1536), (40, 512, 1536, 512),
+             (2, 130, 136, 72), (1, 200, 264, 136), (40, 130, 1544, 520)]
     err = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         for E, C, d, f in cases:
@@ -921,25 +957,30 @@ def _gmm_bwd_rows(E, C, d, f, gen, flush):
     """dx = g w^T and dw = x^T g of the grouped matmul (E, C, d) @ (E, d, f)
     timed, bf16, beside the plain versions, torch.bmm on the same operands
     (timed here only) and the bound: each operand read once, the gradient
-    written once, 2 E C d f operations."""
+    written once, 2 E C d f operations. before_ms: the earlier path, the
+    wrapper's contiguous copy of w^T or x^T and the forward kernel on it
+    (timed as one call, copy included); copy_ms: that copy alone."""
     from repro_torch.kernels.moe_gmm import ops as gmm_ops
     from repro_torch.kernels.moe_gmm import ref as gmm_ref
 
     x, w, g = (_randn(gen, *s, dtype=torch.bfloat16) for s in ((E, C, d), (E, d, f), (E, C, f)))
     rows = []
-    for name, call, plain, lib, out_elems in (
+    for name, call, plain, lib, before, copy, out_elems in (
             ("grouped_matmul_dx", lambda: gmm_ops.grouped_matmul_dx(g, w),
              lambda: gmm_ref.gmm_dx_reference(g, w), lambda: torch.bmm(g, w.transpose(1, 2)),
-             E * C * d),
+             lambda: gmm_ops._launch(g, w.transpose(1, 2).contiguous()),
+             lambda: w.transpose(1, 2).contiguous(), E * C * d),
             ("grouped_matmul_dw", lambda: gmm_ops.grouped_matmul_dw(x, g),
              lambda: gmm_ref.gmm_dw_reference(x, g), lambda: torch.bmm(x.transpose(1, 2), g),
-             E * d * f)):
+             lambda: gmm_ops._launch(x.transpose(1, 2).contiguous(), g),
+             lambda: x.transpose(1, 2).contiguous(), E * d * f)):
         ins = (g.numel() + w.numel()) if name.endswith("dx") else (x.numel() + g.numel())
         bound, by = _bound(2 * (ins + out_elems), 2 * E * C * d * f)
         rows.append({"name": name, "route": "cuda", "source": "src/repro_torch/csrc/moe_gmm.cu",
                      "replaces": "src/repro/kernels/moe_gmm/ops.py:22",
                      "ms": _time_ms(call, flush), "plain_ms": _time_ms(plain, flush),
                      "bound_ms": bound, "bound_by": by, "library_ms": _time_ms(lib, flush),
+                     "before_ms": _time_ms(before, flush), "copy_ms": _time_ms(copy, flush),
                      "host_us": _host_us(call), "shape": f"E={E} C={C} d={d} f={f} bf16"})
     return rows
 
@@ -1551,7 +1592,8 @@ def phase_model_api(arch, B, S, steps=16, profile_steps=0):
     torch.cuda.empty_cache()
 
 
-KERNEL_FAMILIES = {"grouped matmul": ("gmm_kernel", "gmm_mma_kernel"),
+KERNEL_FAMILIES = {"grouped matmul": ("gmm_kernel", "gmm_mma_kernel", "gmm_tiled_kernel",
+                                      "gemm_fma_kernel"),
                    "attention": ("flash_fwd_kernel", "flash_mma_kernel", "decode_kernel",
                                  "decode_split_kernel"),
                    "attention backward": ("flash_bwd_",),

@@ -5,13 +5,20 @@
     python3 chip_variants.py decode_attention mamba_scan    # only these sources
 
 The grouped matmul (csrc/moe_gmm.cu), flash prefill (csrc/flash_attention.cu),
-split-KV decode (csrc/decode_attention.cu) and the SSD scan
-(csrc/mamba_scan.cu) are built again with other values of their constants
-(gmm: f tile width and ring depth; flash: warps per block, keys per tile,
-K/V ring depth, a register cap; decode: keys per tile, K/V ring depth, and
-besides the host's split rule, fixed split counts, whisper-base's cross
-decode over 1500 frames among them; SSD: columns of P per block) into
-build/repro_torch/variants/. Each variant is timed with
+the flash backward (csrc/flash_attention_bwd.cu), split-KV decode
+(csrc/decode_attention.cu) and the SSD scan (csrc/mamba_scan.cu) are built
+again with other values of their constants (gmm: f tile width and ring
+depth; its gradients' TMA/wgmma GEMM: tile width and ring depth, at dx, dw
+and the forward at training capacities, beside the earlier path (a transposed
+copy, then the forward kernel) and the copies alone; flash: warps per
+block, keys per tile, K/V ring depth, a register cap; flash backward: keys
+per dq tile, rows per dk/dv tile, both rings' depths, the dk/dv D loop's
+unroll, and besides the host's split rule, fixed splits of the query
+heads, with a per-kernel profile; decode: keys per tile,
+K/V ring depth, and besides the host's split rule, fixed split counts,
+whisper-base's cross decode over 1500 frames among them; SSD: columns of P
+per block) into build/repro_torch/variants/, printing the registers and
+spills of each variant's tensor-core kernels. Each variant is timed with
 chip_smoke.py's _time_ms (L2 cold and clean, host enqueue hidden) at the
 served models' shapes, bf16, beside torch.bmm /
 scaled_dot_product_attention and two floors of the measurement itself: one
@@ -33,15 +40,18 @@ ROOT = Path(__file__).resolve().parent
 # kernel source -> variant name -> {text in the source: replacement}
 VARIANTS = {
     "moe_gmm": {"ft64": {}, "ft128": {"kMmaFT = 64;": "kMmaFT = 128;"},
-                "ring8": {"kStages = 4;": "kStages = 8;"}},
-    "flash_attention": {"w4kt64": {}, "w2kt64": {"kFW = 4;": "kFW = 2;"},
-                        "w1kt64": {"kFW = 4;": "kFW = 1;"},
-                        "w4kt32": {"kKT = 64;": "kKT = 32;"},
-                        "w4kt128": {"kKT = 64;": "kKT = 128;"},
-                        "w4kt64r3": {"kKVStages = 2;": "kKVStages = 3;"},
-                        "w4kt64r4": {"kKVStages = 2;": "kKVStages = 4;"},
-                        "w4kt64x3": {"__launch_bounds__(32 * kFW)":
-                                     "__launch_bounds__(32 * kFW, D <= 64 ? 3 : 1)"}},
+                "ring8": {"kStages = 4;": "kStages = 8;"},
+                "tn128s5": {}, "tn128s4": {"kTStages = 5;": "kTStages = 4;"},
+                "tn128s3": {"kTStages = 5;": "kTStages = 3;"},
+                "tn64s5": {"kTBN = 128;": "kTBN = 64;"},
+                "tn64s6": {"kTBN = 128;": "kTBN = 64;", "kTStages = 5;": "kTStages = 6;"}},
+    "flash_attention_bwd": {"base": {}, "kdu1": {"#pragma unroll 2": "#pragma unroll 1"},
+                            "kdu4": {"#pragma unroll 2": "#pragma unroll 4"},
+                            "qr2": {"kQStages = 3;": "kQStages = 2;"},
+                            "qr4": {"kQStages = 3;": "kQStages = 4;"},
+                            "q16": {"kQT = 32;": "kQT = 16;"},
+                            "dqr3": {"kKVStages = 2;": "kKVStages = 3;"},
+                            "dq64": {"KT = D >= 128 ? 32 : 64;": "KT = 64;"}},
     "decode_attention": {"kt64r2": {}, "kt64r3": {"kDStages = 2;": "kDStages = 3;"},
                          "kt64r4": {"kDStages = 2;": "kDStages = 4;"},
                          "kt32r2": {"kDT = 64;": "kDT = 32;"},
@@ -50,6 +60,16 @@ VARIANTS = {
                    "pw64": {"kPW = 16;": "kPW = 64;"}},
 }
 GMM_SHAPES = [(40, c, d, f) for c in (4, 16, 64) for d, f in ((1536, 512), (512, 1536))]
+GMM_MMA_VARIANTS = ("ft64", "ft128", "ring8")     # the forward kernel's; the rest the GEMM's
+# granite's expert products at training capacities (C = 256 at B x S =
+# 1024, 512 at 2048) and below, where the forward could take the GEMM too
+GEMM_SHAPES = [(40, c, d, f) for c in (64, 128, 256, 512) for d, f in ((1536, 512), (512, 1536))]
+# (name, B, S, H, KH, D, fixed split counts) of the flash backward: the train
+# phase's qwen2-1.5b and granite-moe-3b-a800m, and glm4-9b's 16 query heads
+# per KV head
+FLASH_BWD_SHAPES = [("qwen2-1.5b", 4, 512, 12, 2, 128, (1, 2, 3, 6)),
+                    ("granite-moe-3b-a800m", 2, 512, 24, 8, 64, (1, 3)),
+                    ("glm4-9b", 2, 512, 32, 2, 128, (1, 2, 4, 8, 16))]
 FLASH_HEADS = ((12, 2, 128), (24, 8, 64), (32, 32, 64))     # qwen2, granite, zamba2
 DECODE_FIXED_SPLITS = (1, 2, 4, 8, 16, 32, 64)
 WHISPER_CROSS_SPLITS = (1, 3, 6, 12)    # 24, 8, 4 and 2 units of 64 frames per split
@@ -165,12 +185,139 @@ def _build(build, sources):
         log, _ = proc.communicate()
         assert proc.returncode == 0, log
         libs[key] = ctypes.CDLL(str(so))
+        _print_registers(key, log)
     return libs
+
+
+def _print_registers(key, log):
+    """ptxas's registers and spills of a variant's tensor-core kernels."""
+    import chip_smoke as cs
+
+    fn = None
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            fn = cs._demangle(line.split("Function properties for")[1].strip())
+        elif fn and ("mma_kernel" in fn or "tiled_kernel" in fn) and \
+                ("registers" in line or "spill" in line):
+            print(f"[variants] {key[0]}/{key[1]} {fn}: {line.split(':', 1)[-1].strip()}")
+
+
+def _gemm_variants(cs, libs, flush, gen, stream):
+    """The gradients' GEMM variants at granite's training capacities: dx =
+    g w^T, dw = x^T g and the forward x w (each held against the plain
+    version first), beside torch.bmm, the forward kernel (gmm_mma_kernel)
+    and the earlier path of each gradient (a contiguous transposed copy, then
+    the forward kernel) and that copy alone."""
+    from repro_torch.kernels.moe_gmm import ops as gmm_ops
+    from repro_torch.kernels.moe_gmm import ref as gmm_ref
+
+    names = [n for n in VARIANTS["moe_gmm"] if n not in GMM_MMA_VARIANTS]
+    us = lambda fn: f"{1e3 * cs._time_ms(fn, flush):.1f}"  # noqa: E731
+    for E, C, d, f in GEMM_SHAPES:
+        x, w, g = (cs._randn(gen, *s, dtype=torch.bfloat16) for s in ((E, C, d), (E, d, f), (E, C, f)))
+        for what, (a, b, M, N, K, layout), want, bmm, before, copy in (
+                ("dx", (g, w, C, d, f, 1), gmm_ref.gmm_dx_reference(g, w),
+                 lambda: torch.bmm(g, w.transpose(1, 2)),
+                 lambda: gmm_ops._launch(g, w.transpose(1, 2).contiguous()),
+                 lambda: w.transpose(1, 2).contiguous()),
+                ("dw", (x, g, d, f, C, 2), gmm_ref.gmm_dw_reference(x, g),
+                 lambda: torch.bmm(x.transpose(1, 2), g),
+                 lambda: gmm_ops._launch(x.transpose(1, 2).contiguous(), g),
+                 lambda: x.transpose(1, 2).contiguous()),
+                ("fwd", (x, w, C, f, d, 0), gmm_ref.gmm_reference(x, w), lambda: torch.bmm(x, w),
+                 lambda: gmm_ops._launch(x, w), None)):
+            o = torch.empty(E, M, N, dtype=torch.bfloat16, device="cuda")
+            row = [f"bmm {us(bmm)}", f"{'mma' if copy is None else 'copy+mma'} {us(before)}"]
+            if copy is not None:
+                row.append(f"copy {us(copy)}")
+            for name in names:
+                fn = libs[("moe_gmm", name)].repro_grouped_gemm
+                fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+                call = lambda: fn(a.data_ptr(), b.data_ptr(), o.data_ptr(), E, M, N, K,  # noqa: E731
+                                  layout, 1, 1, 0, stream)
+                assert call() == 0, name
+                torch.cuda.synchronize()
+                cs._check(f"gemm {name} {what}", o, want, **cs.GMM_BWD_TOL[torch.bfloat16])
+                row.append(f"{name} {us(call)}")
+            print(f"[variants] gemm {what} E={E} C={C} d={d} f={f} us: {', '.join(row)}", flush=True)
+
+
+def _flash_bwd_variants(cs, libs, flush, gen, stream):
+    """The flash backward's variants at the train shapes and glm4-9b's
+    heads, causal, bf16, each held against the plain backward (the bf16
+    tolerance in units of each row's RMS, and FLASH_BWD_REL of the fp32
+    plain backward's norm) at the host's split rule; then the default build
+    at fixed split counts; SDPA's backward beside."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    us = lambda fn: f"{1e3 * cs._time_ms(fn, flush):.1f}"  # noqa: E731
+    for arch, B, S, H, KH, D, fixed in FLASH_BWD_SHAPES:
+        q, dout = (cs._randn(gen, B, S, H, D, dtype=torch.bfloat16) for _ in range(2))
+        k, v = (cs._randn(gen, B, S, KH, D, dtype=torch.bfloat16) for _ in range(2))
+        out, lse = fa_ops._forward("cuda", q, k, v, True, 0, None, True)
+        want = fa_ref.mha_backward_reference(q, k, v, dout)
+        exact = fa_ref.mha_backward_reference(q.float(), k.float(), v.float(), dout.float())
+        got = [torch.empty_like(t) for t in (q, k, v)]
+        delta = torch.empty((B, H, S), dtype=torch.float32, device="cuda")
+        part = torch.empty(2 * B * KH * (H // KH) * S * D, dtype=torch.float32, device="cuda")
+        rule = fa_ops.dkdv_splits(B, S, KH, H // KH, sms)
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+        dot = dout.transpose(1, 2).contiguous()
+        row = [f"sdpa {us(lambda: torch.autograd.grad(o, (qt, kt, vt), dot, retain_graph=True))}"]
+
+        def timed(name, fn, splits):
+            call = lambda: fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),  # noqa: E731
+                              dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                              *(t.data_ptr() for t in got), part.data_ptr(), B, S, S, H, KH, D, 1,
+                              1, 0, D ** -0.5, 1, splits, 0, stream)
+            assert call() == 0, (name, splits)
+            torch.cuda.synchronize()
+            for gname, a, b, c in zip(("dq", "dk", "dv"), got, want, exact):
+                cs._check_rows(f"flash bwd {name} {arch} {gname}", a, b,
+                               **cs.FLASH_BWD_TOL[torch.bfloat16])
+                assert cs._rel(a, c) <= cs.FLASH_BWD_REL, (name, arch, gname)
+            return f"{name}/s{splits} {us(call)}"
+
+        fns = {}
+        for name in VARIANTS["flash_attention_bwd"]:
+            fn = libs[("flash_attention_bwd", name)].repro_flash_attention_bwd
+            fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + \
+                [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+            fns[name] = fn
+        row += [timed(name, fn, rule) for name, fn in fns.items()]
+        base = next(iter(fns))
+        row += [timed(base, fns[base], n) for n in fixed if n != rule]
+        print(f"[variants] flash bwd {arch} B={B} S={S} H={H} KH={KH} D={D} causal (rule: {rule} "
+              f"splits) us: {', '.join(row)}", flush=True)
+        print(f"[variants] flash bwd {arch} {base}/s{rule} by kernel (us, profiler, 5 calls): " +
+              _by_kernel(lambda: fa_ops.flash_attention_bwd(q, k, v, out, lse, dout), 5), flush=True)
+
+
+def _by_kernel(fn, calls):
+    """Device time per call of each kernel ``fn`` launches, from one
+    torch.profiler window over ``calls`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    dev = {e.key.replace("(anonymous namespace)::", "").replace("repro::", "").split("(")[0]
+           .removeprefix("void "): e.self_device_time_total / calls
+           for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA}
+    return ", ".join(f"{k} {v:.1f}" for k, v in sorted(dev.items(), key=lambda kv: -kv[1]))
 
 
 def _gmm_variants(cs, libs, flush, gen, stream):
     """The grouped matmul's variants at granite's expert products, beside
-    w.sum (one read of the weights) and torch.bmm."""
+    w.sum (one read of the weights) and torch.bmm; then the gradients'
+    GEMM variants (_gemm_variants)."""
     from repro_torch.kernels.moe_gmm import ref as gmm_ref
 
     for E, C, d, f in GMM_SHAPES:
@@ -180,7 +327,7 @@ def _gmm_variants(cs, libs, flush, gen, stream):
         want = gmm_ref.gmm_reference(x, w)
         row = [f"w.sum {1e3 * cs._time_ms(lambda: w.sum(dtype=torch.float32), flush):.1f}",
                f"bmm {1e3 * cs._time_ms(lambda: torch.bmm(x, w), flush):.1f}"]
-        for name in VARIANTS["moe_gmm"]:
+        for name in GMM_MMA_VARIANTS:
             fn = libs[("moe_gmm", name)].repro_grouped_matmul
             fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
             call = lambda: fn(x.data_ptr(), w.data_ptr(), o.data_ptr(), E, C, d, f,  # noqa: E731
@@ -190,6 +337,7 @@ def _gmm_variants(cs, libs, flush, gen, stream):
             cs._check(f"gmm {name}", o, want, **cs.GMM_TOL[torch.bfloat16])
             row.append(f"{name} {1e3 * cs._time_ms(call, flush):.1f}")
         print(f"[variants] gmm E={E} C={C} d={d} f={f} us: {', '.join(row)}", flush=True)
+    _gemm_variants(cs, libs, flush, gen, stream)
 
 
 
@@ -237,7 +385,8 @@ def main():
     one = torch.zeros(1, device="cuda")
     print(f"[variants] one tiny launch: {1e3 * cs._time_ms(lambda: one.add_(1), flush):.1f} us")
     runs = {"moe_gmm": _gmm_variants, "flash_attention": _flash_variants,
-            "decode_attention": _decode_variants, "mamba_scan": _ssd_variants}
+            "flash_attention_bwd": _flash_bwd_variants, "decode_attention": _decode_variants,
+            "mamba_scan": _ssd_variants}
     for src in sources:
         runs[src](cs, libs, flush, gen, stream)
     print("[variants] done")

@@ -15,6 +15,11 @@ Where q, k or v requires grad (and grad mode is on), the forward runs inside
 row's log-sum-exp, and its backward runs the backward kernel on it. Under
 ``torch.utils.checkpoint`` the forward runs again in the backward pass, and
 the Function saves that run's LSE.
+
+The bf16 backward's dk/dv kernel splits each KV head's G query heads into
+``dkdv_splits`` parts, a function of the shapes and the SM count only, so
+that its blocks fill the card; the parts' fp32 sums are added in a fixed
+order by a second pass, and the gradients repeat bit for bit.
 """
 from __future__ import annotations
 
@@ -24,11 +29,30 @@ from functools import lru_cache
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import (DTYPE_CODES, HEAD_DIMS, check_aligned,
+from repro_torch.kernels.common import (DTYPE_CODES, HEAD_DIMS, cdiv, check_aligned,
                                         check_launch, check_operands, kernel_route)
 from repro_torch.kernels.flash_attention import ref as _ref
 
 VARIANTS = {"fma": 0, "mma": 1}   # the C entry points' `variant`
+DKDV_KEYS = 64          # keys per block of the bf16 dk/dv kernel (csrc kKB)
+DKDV_BLOCKS_PER_SM = 2  # resident dk/dv blocks per SM (registers and shared memory)
+
+
+def dkdv_splits(B: int, Sk: int, KH: int, G: int, sms: int) -> int:
+    """Parts into which the bf16 dk/dv kernel splits each KV head's G query
+    heads: the fewest, a divisor of G, that give every SM its resident
+    blocks (DKDV_BLOCKS_PER_SM), or G. Each part adds 2 B KH Sk D fp32 of
+    partial sums that a second pass reads, so no more parts than that."""
+    blocks = cdiv(Sk, DKDV_KEYS) * KH * B
+    for n in range(1, G + 1):
+        if G % n == 0 and blocks * n >= DKDV_BLOCKS_PER_SM * sms:
+            return n
+    return G
+
+
+@lru_cache(None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 @lru_cache(None)
@@ -45,8 +69,8 @@ def _lib():
 def _bwd_lib():
     lib = build.load("flash_attention_bwd")
     fn = lib.repro_flash_attention_bwd
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + \
-        [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + \
+        [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -165,11 +189,15 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True, window:
     _check_cuda("flash_attention_bwd", q, k, v, out, dout)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    mma = q.dtype == torch.bfloat16
+    splits = dkdv_splits(B, Sk, KH, H // KH, _sm_count(q.device.index)) if mma else 1
+    part = torch.empty(2 * B * KH * splits * Sk * D, dtype=torch.float32,
+                       device=q.device) if splits > 1 else None
     err = _bwd_lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
                      lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                     dv.data_ptr(), B, Sq, Sk, H, KH, D, DTYPE_CODES[q.dtype], int(causal),
-                     int(window), _scale(scale, D),
-                     VARIANTS["mma" if q.dtype == torch.bfloat16 else "fma"], q.device.index,
+                     dv.data_ptr(), None if part is None else part.data_ptr(), B, Sq, Sk, H, KH,
+                     D, DTYPE_CODES[q.dtype], int(causal), int(window), _scale(scale, D),
+                     VARIANTS["mma" if mma else "fma"], splits, q.device.index,
                      torch.cuda.current_stream(q.device).cuda_stream)
     check_launch(err, "flash_attention_bwd kernel launch")
     flash_attention_bwd.launches += 1

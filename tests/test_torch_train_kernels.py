@@ -5,11 +5,18 @@ against the JAX package: flash attention against ``jax.grad`` of
 through the oracle), atol / rtol 1e-4 as the reference's own flash gradient
 check (tests/test_kernels.py); the grouped matmul against ``jax.grad`` of
 ``grouped_matmul(impl="pallas_interpret")``, atol 1e-5 as its gradient
-check, with rtol 1e-5 for the larger sums (f up to 160 terms of randn
+check, with rtol 1e-5 for the larger sums (up to 264 terms of randn
 products: gradients near 20, whose fp32 ulp is 2e-6). The plain LSE against a float64 logsumexp, 1e-5. The CUDA kernels
-are held against the same plain versions on the card by chip_smoke.py.
+are held against the same plain versions on the card by chip_smoke.py; the
+shapes here include those whose C, d and f fall past the card kernels' tile
+edges (the gradients' GEMM: 128 x 128 output tiles, K in steps of 64) and
+qwen2-1.5b's 6 query heads per KV head at D = 128.
 Also: a CUDA-routed decode attention or SSD scan raises under grad, since
-neither kernel has a backward."""
+neither kernel has a backward; the CUDA-routed gmm gradients hand the
+operands to the kernel as they lie (no transposed copy); the flash
+backward's split of the query heads is a function of the shapes only."""
+import inspect
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -33,10 +40,13 @@ def _t(a, grad=False):
 
 
 # (B, Sq, Sk, H, KH, D, causal, window): causal, window, GQA, Sq < Sk, no
-# mask, D 32 and 64 (shapes the interpret-mode kernel's blocks divide)
+# mask, D 32, 64 and 128, qwen2-1.5b's G = 6 query heads per KV head
+# (shapes the interpret-mode kernel's blocks divide)
 FLASH_CASES = [(1, 128, 128, 2, 2, 32, True, 0), (2, 128, 128, 4, 2, 64, True, 48),
                (1, 64, 128, 6, 2, 32, True, 0), (1, 64, 128, 4, 1, 64, True, 32),
-               (2, 128, 128, 4, 4, 64, False, 0), (1, 64, 128, 2, 1, 32, False, 0)]
+               (2, 128, 128, 4, 4, 64, False, 0), (1, 64, 128, 2, 1, 32, False, 0),
+               (1, 128, 128, 12, 2, 128, True, 0), (2, 64, 64, 6, 1, 64, True, 16),
+               (1, 64, 128, 6, 1, 128, True, 0)]
 
 
 @pytest.mark.parametrize("B,Sq,Sk,H,KH,D,causal,window", FLASH_CASES)
@@ -96,7 +106,12 @@ def test_flash_refuses_a_causal_backward_with_queries_past_the_keys():
         assert fa_ops.flash_attention(q, kv, kv).shape == q.shape
 
 
-@pytest.mark.parametrize("E,C,d,f", [(2, 16, 8, 12), (3, 17, 24, 40), (4, 64, 96, 160)])
+# the repo's gradient-check shapes, then shapes past the gradients' GEMM
+# tile edges: C = 130 and 200 past 128 rows of dx and past 2 and 3 K steps
+# of 64 in dw; d = 136 and 264 and f = 72 and 136 past 128 and 256 columns
+# and past the K steps of dx
+@pytest.mark.parametrize("E,C,d,f", [(2, 16, 8, 12), (3, 17, 24, 40), (4, 64, 96, 160),
+                                     (2, 130, 136, 72), (1, 200, 264, 136)])
 def test_gmm_grad_matches_jax(E, C, d, f):
     rng = np.random.default_rng(E * 1000 + C)
     x = rng.standard_normal((E, C, d)).astype(np.float32)
@@ -113,6 +128,68 @@ def test_gmm_grad_matches_jax(E, C, d, f):
                                np.asarray(want[0]), **GMM_TOL)
     np.testing.assert_allclose(gmm_ops.grouped_matmul_dw(_t(x), _t(g)).numpy(),
                                np.asarray(want[1]), **GMM_TOL)
+
+
+def test_cuda_gmm_gradients_read_the_operands_as_they_lie(monkeypatch):
+    """On the card dx = g w^T is the GEMM's "nt" layout of g and w, and
+    dw = x^T g its "tn" layout of x and g: the very tensors, no transposed
+    copy; (M, N, K) = (C, d, f) and (d, f, C)."""
+    E, C, d, f = 2, 5, 8, 16
+    x, w, g = torch.randn(E, C, d), torch.randn(E, d, f), torch.randn(E, C, f)
+    calls = []
+
+    def gemm(a, b, layout, M, N, K):
+        calls.append((a, b, layout, M, N, K))
+        return torch.zeros(E, M, N)
+
+    _cuda_route(monkeypatch, gmm_ops)
+    monkeypatch.setattr(gmm_ops, "_gemm", gemm)
+    assert gmm_ops.grouped_matmul_dx(g, w).shape == (E, C, d)
+    assert gmm_ops.grouped_matmul_dw(x, g).shape == (E, d, f)
+    (a, b, *rest), (a2, b2, *rest2) = calls
+    assert a is g and b is w and rest == ["nt", C, d, f]
+    assert a2 is x and b2 is g and rest2 == ["tn", d, f, C]
+
+
+@pytest.mark.parametrize("B,Sk,KH,G", [(4, 512, 2, 6), (2, 512, 8, 3), (2, 512, 2, 16),
+                                       (2, 100, 2, 6), (1, 1, 1, 12), (8, 1500, 8, 1),
+                                       (64, 4096, 8, 4)])
+def test_flash_bwd_split_rule(B, Sk, KH, G):
+    """The dk/dv kernel's split of the G query heads of a KV head: a divisor
+    of G, the fewest that give each of the card's SMs two blocks (G where
+    none does), from the shapes and the SM count only (the caller passes the
+    card's; 132 on an H100 SXM)."""
+    params = inspect.signature(fa_ops.dkdv_splits).parameters
+    assert list(params) == ["B", "Sk", "KH", "G", "sms"]
+    n = fa_ops.dkdv_splits(B, Sk, KH, G, 132)
+    blocks = -(-Sk // fa_ops.DKDV_KEYS) * KH * B
+    assert G % n == 0
+    assert blocks * n >= 2 * 132 or n == G
+    assert all(G % m or blocks * m < 2 * 132 for m in range(1, n))
+
+
+def test_flash_bwd_split_rule_at_the_train_shapes():
+    """qwen2-1.5b (B=4, S=512, KH=2, G=6) takes 6 parts, granite-moe-3b-a800m
+    (B=2, KH=8, G=3) 3, glm4-9b's G=16 at B=2 all 16; at B x S = 8 x 4096
+    granite needs none."""
+    assert [fa_ops.dkdv_splits(B, S, KH, G, 132) for B, S, KH, G in
+            ((4, 512, 2, 6), (2, 512, 8, 3), (2, 512, 2, 16), (8, 4096, 8, 3))] == [6, 3, 16, 1]
+
+
+@pytest.mark.parametrize("C,want", [(1, "mma"), (64, "mma"), (127, "mma"), (128, "tiled"),
+                                    (256, "tiled"), (512, "tiled")])
+def test_gmm_forward_route_by_capacity(C, want):
+    """The product's kernel is a function of dtype, shapes and alignment:
+    bf16 with 16-byte rows takes the weight-streaming kernel below
+    TILED_MIN_C = 128 capacity rows (serving) and the gradients' GEMM from
+    there on (granite-moe-3b-a800m trains at C = 256); anything else the
+    CUDA-core kernel."""
+    params = inspect.signature(gmm_ops.route).parameters
+    assert list(params) == ["dtype", "C", "d", "f", "aligned"]
+    assert gmm_ops.route(torch.bfloat16, C, 1536, 512, True) == want
+    assert gmm_ops.route(torch.float32, C, 1536, 512, True) == "fma"
+    assert gmm_ops.route(torch.bfloat16, C, 1536, 512, False) == "fma"
+    assert gmm_ops.route(torch.bfloat16, C, 1536, 12, True) == "fma"
 
 
 def test_gmm_only_the_needed_gradient_is_computed():
