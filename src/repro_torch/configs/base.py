@@ -1,10 +1,10 @@
 """Model configuration for the models the port runs: the decoders it serves
-(dense, MoE and hybrid Mamba2), and Whisper (audio) and Qwen2-VL (vlm) at
-the model API.
+(dense, MoE, hybrid Mamba2 and xLSTM), and Whisper (audio) and Qwen2-VL
+(vlm) at the model API.
 
 An own copy of ``ModelConfig``, cut to the fields and properties the
-dense, MoE, hybrid, audio and vlm paths read, in serving and in
-training. ``weight_sharding``, ``kv_seq_shard`` and ``vision_stub`` are
+dense, MoE, hybrid, ssm (xLSTM), audio and vlm paths read, in serving and
+in training. ``weight_sharding``, ``kv_seq_shard`` and ``vision_stub`` are
 kept so that the per-arch ``config()`` functions stay verbatim copies;
 nothing in the port reads the first two until it has a mesh, and the
 third records that the vision tower is a stub (the batch brings the
@@ -19,7 +19,7 @@ from dataclasses import dataclass, replace
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # dense | moe | hybrid | audio | vlm (ssm: not ported yet)
+    family: str                      # dense | moe | ssm | hybrid | audio | vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -51,6 +51,10 @@ class ModelConfig:
     ssm_conv: int = 4
     attn_every: int = 0              # hybrid: shared attn block after every k SSM layers
 
+    # --- xLSTM ---
+    slstm_every: int = 0             # sLSTM block at layers where (i+1) % slstm_every == 0
+    mlstm_expand: float = 2.0
+
     # --- encoder-decoder (whisper) ---
     is_encoder_decoder: bool = False
     n_enc_layers: int = 0
@@ -78,6 +82,10 @@ class ModelConfig:
     @property
     def ssm_nheads(self) -> int:
         return self.d_inner // self.ssm_head_dim
+
+    @property
+    def mlstm_d_inner(self) -> int:
+        return int(self.mlstm_expand * self.d_model)
 
     @property
     def is_recurrent(self) -> bool:

@@ -1,5 +1,5 @@
-"""--arch <id> registry. The ids are those of ``repro``; all but xlstm-350m
-are ported, and it raises until its slice lands."""
+"""--arch <id> registry, with the ids of ``repro``: every arch of the
+reference is ported."""
 from __future__ import annotations
 
 import importlib
@@ -17,17 +17,13 @@ _ARCH_MODULES: Dict[str, str] = {
     "zamba2-1.2b": "repro_torch.configs.zamba2_1p2b",
     "whisper-base": "repro_torch.configs.whisper_base",
     "qwen2-vl-2b": "repro_torch.configs.qwen2_vl_2b",
+    "xlstm-350m": "repro_torch.configs.xlstm_350m",
 }
-
-_NOT_PORTED = ("xlstm-350m",)
 
 ARCH_IDS: List[str] = list(_ARCH_MODULES)
 
 
 def _module(arch: str):
-    if arch in _NOT_PORTED:
-        raise NotImplementedError(f"arch {arch!r} is not ported yet; "
-                                  f"ported: {ARCH_IDS}")
     if arch not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
     return importlib.import_module(_ARCH_MODULES[arch])

@@ -20,6 +20,12 @@ def compute_dtype(cfg) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
+def wide(dtype: torch.dtype) -> torch.dtype:
+    """fp32, or ``dtype`` if it is wider: where the norms, the loss and the
+    recurrent states are computed (an fp64 model stays fp64 throughout)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 # ------------------------------------------------------------- param trees
 def nest(flat: Dict[str, Any]) -> Dict[str, Any]:
     """{"a/b": x} -> {"a": {"b": x}} (keys as ``repro.train.checkpoint``'s
@@ -104,9 +110,9 @@ def init_params(gen: torch.Generator, cfg, shapes, dtype_of, const=None):
 
 # ------------------------------------------------------------------- norms
 def rmsnorm(x, p, eps: float):
-    xf = x.float()
+    xf = x.to(wide(x.dtype))
     var = (xf * xf).mean(dim=-1, keepdim=True)
-    out = xf * torch.rsqrt(var + eps) * p["scale"].float()
+    out = xf * torch.rsqrt(var + eps) * p["scale"].to(xf.dtype)
     return out.to(x.dtype)
 
 
@@ -177,10 +183,10 @@ def unembed(p, cfg, x):
 # -------------------------------------------------------------------- loss
 def cross_entropy(logits, labels, vocab_size: int):
     """Mean cross entropy over the valid labels (0 <= label < vocab_size),
-    in fp32 over the (possibly padded) vocab axis of ``logits``; other
-    labels are masked out, and the mean is over the valid ones (at least
-    one)."""
-    logits = logits.float()
+    in fp32 (or the logits' dtype if wider) over the (possibly padded) vocab
+    axis of ``logits``; other labels are masked out, and the mean is over
+    the valid ones (at least one)."""
+    logits = logits.to(wide(logits.dtype))
     lse = torch.logsumexp(logits, dim=-1)
     labels = labels.long()
     mask = (labels >= 0) & (labels < vocab_size)

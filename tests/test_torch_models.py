@@ -146,14 +146,19 @@ def test_params_from_numpy_keeps_the_router_fp32():
 
 
 def test_unported_families_and_devices_raise(monkeypatch):
-    from repro_torch.configs.registry import get_config
+    """Every arch and family of the reference is ported (xlstm-350m and
+    family ssm last); an unknown arch or family still raises, and so does a
+    CUDA device where there is none."""
+    from repro.configs.registry import ARCH_IDS as JAX_ARCH_IDS
+    from repro_torch.configs.registry import ARCH_IDS, get_config
     from repro_torch.kernels.common import resolve_device
-    for arch in ("xlstm-350m",):
-        with pytest.raises(NotImplementedError):
-            get_config(arch)
-    for family in ("ssm",):
-        with pytest.raises(NotImplementedError):
-            mapi.get_model(get_smoke_config("qwen2-1.5b").with_(family=family))
+    from repro_torch.models import xlstm
+    assert sorted(ARCH_IDS) == sorted(JAX_ARCH_IDS)
+    assert mapi.get_model(get_config("xlstm-350m")) is xlstm
+    with pytest.raises(KeyError):
+        get_config("no-such-arch")
+    with pytest.raises(NotImplementedError):
+        mapi.get_model(get_smoke_config("qwen2-1.5b").with_(family="no-such-family"))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device(None)

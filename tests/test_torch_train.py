@@ -30,10 +30,14 @@ from repro_torch.train.data import SyntheticLM
 
 TOL = dict(atol=2e-4, rtol=2e-3)
 PARAM_TOL = dict(atol=1e-5, rtol=1e-4)
-# (arch, moe_impl): dense, MoE on both dispatch paths, VLM and audio
+# The xLSTM's global grad norm is 24-29 in the three JAX steps (the other
+# archs': 5-7), so clipping to 1 scales its gradients down about 5x more,
+# and 0.22% of its elements fall within 10 eps of zero (the others: 0.06-0.09%)
+ILL_SHARE = {"xlstm-350m": 3e-3}
+# (arch, moe_impl): dense, MoE on both dispatch paths, VLM, audio and xLSTM
 LOSS_CASES = [("qwen2-1.5b", None), ("granite-moe-3b-a800m", "onehot"),
               ("granite-moe-3b-a800m", "sorted"), ("qwen2-vl-2b", None),
-              ("whisper-base", None)]
+              ("whisper-base", None), ("xlstm-350m", None)]
 
 
 def _configs(arch, moe_impl=None):
@@ -133,8 +137,12 @@ def test_adamw_update_matches_jax():
 
 @pytest.mark.parametrize("arch,schedule", [("qwen2-1.5b", "cosine"),
                                            ("granite-moe-3b-a800m", "cosine"),
-                                           ("minicpm-2b", "wsd")])
+                                           ("minicpm-2b", "wsd"),
+                                           ("xlstm-350m", "cosine")])
 def test_three_train_steps_match_jax(arch, schedule):
+    """Three steps from the same params and batches. At most 1e-3 of the
+    elements (ILL_SHARE for an arch named there) may be exempt as
+    ill-conditioned; that share is read from the JAX run alone."""
     jcfg, jparams, cfg, params = _setup(arch)
     joc = jopt.OptConfig(total_steps=4, warmup_steps=1, schedule=schedule)
     oc = opt.OptConfig(total_steps=4, warmup_steps=1, schedule=schedule)
@@ -158,7 +166,7 @@ def test_three_train_steps_match_jax(arch, schedule):
     assert int(o["step"]) == int(jo["step"]) == 3
     want = _flatten(jparams)
     n_ill = sum(int(v.sum()) for v in ill.values())
-    assert n_ill <= 1e-3 * sum(v.size for v in ill.values()), n_ill
+    assert n_ill <= ILL_SHARE.get(arch, 1e-3) * sum(v.size for v in ill.values()), n_ill
     for key, p in params_to_numpy(params).items():
         w = np.asarray(want[key])
         np.testing.assert_allclose(p[~ill[key]], w[~ill[key]], **PARAM_TOL, err_msg=key)
@@ -215,6 +223,31 @@ def test_remat_gives_the_same_grads(monkeypatch):
     # per layer: the forward, the backward's recompute of the plain version
     # and, under remat only, the layer's second forward
     assert n_calls == [3 * cfg.n_layers, 2 * cfg.n_layers], n_calls
+    for a, b in zip(*out):
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-6)
+
+
+def test_xlstm_remat_gives_the_same_grads(monkeypatch):
+    """Under activation checkpointing each mLSTM layer's forward runs again
+    in the backward pass (the sLSTM layers are not checkpointed, as in the
+    JAX package); the gradients are the same as without it."""
+    from repro_torch.models import xlstm
+    real, calls = xlstm._mlstm_chunked, []
+    monkeypatch.setattr(xlstm, "_mlstm_chunked", lambda *a: calls.append(1) or real(*a))
+    cfg = get_smoke_config("xlstm-350m")
+    batch = _torch(_batch(cfg))
+    out, n_calls = [], []
+    for remat in (True, False):
+        calls.clear()
+        c = cfg.with_(remat=remat)
+        params = mapi.get_model(c).init(torch.Generator().manual_seed(0), c)
+        flat = cm.flatten(params)
+        for p in flat.values():
+            p.requires_grad_(True)
+        loss, _ = steps.loss_fn(params, c, batch)
+        out.append(torch.autograd.grad(loss, list(flat.values())))
+        n_calls.append(len(calls))
+    assert n_calls == [2 * xlstm.n_mlstm(cfg), xlstm.n_mlstm(cfg)], n_calls
     for a, b in zip(*out):
         torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-6)
 
