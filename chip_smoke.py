@@ -51,6 +51,15 @@ Phases; any failure exits non-zero and no phase's failure is caught:
      backward through autograd and torch.bmm (timed here only); dx and dw
      also beside the earlier path (a contiguous transposed copy of w or x,
      then the forward kernel: before_ms) and that copy alone (copy_ms).
+     The SSD scan's backward (dx, ddt, dA, dB, dC, dD, dinit) at the
+     forward's cases and zamba2-1.2b's conv-buffer layout: fp32 within 1e-4
+     of the plain backward in fp64 (the fp32 plain backward's own share of
+     that tolerance printed beside), bf16 within 2e-2 of the plain backward
+     on the same inputs and its dx, dB and dC rows (the rest in norm) within
+     1e-2 of the plain backward in fp32; two calls bit for bit; through
+     autograd and under a checkpoint the kernel's, bit for bit, and near the
+     plain version's autograd. Timed at zamba2's train shape (B=4, S=512,
+     bf16) beside the plain backward (no single PyTorch call computes it).
   3. parity: qwen2-1.5b, granite-moe-3b-a800m, qwen2-vl-2b (256 vision
      tokens) and glm4-9b at full width cut to 2 layers, whisper-base cut
      to 2 encoder and 2 decoder layers over its 1500 frames, and
@@ -66,10 +75,12 @@ Phases; any failure exits non-zero and no phase's failure is caught:
      the same bound; in fp32, where no fixed bound holds at this width,
      the card's are held to the CPU's fp64 values within 3x the CPU's own
      fp32 error (phase_parity_xlstm). Then one train step of qwen2-1.5b and
-     granite-moe-3b-a800m (2 layers, fp32, B=2, S=64) and of xlstm-350m
-     (6 layers, fp64, B=2, S=512): the loss and every param's gradient
-     agree within the same bound, and the card's AdamW step equals the
-     CPU's on the same gradients (phase_train_parity).
+     granite-moe-3b-a800m (2 layers, fp32, B=2, S=64), of xlstm-350m
+     (6 layers, fp64, B=2, S=512) and of zamba2-1.2b (6 Mamba layers and one
+     insertion of the shared block, fp32, B=2, S=200: a ragged last chunk;
+     the SSD scan's gradient in the backward kernel): the loss and every
+     param's gradient agree within the same bound, and the card's AdamW step
+     equals the CPU's on the same gradients (phase_train_parity).
   4. serve: qwen2-1.5b (28 layers), granite-moe-3b-a800m (32 layers),
      zamba2-1.2b (38 Mamba layers, 6 shared-attention insertions) and
      xlstm-350m (20 mLSTM, 4 sLSTM layers) at full width, bf16, random
@@ -85,19 +96,23 @@ Phases; any failure exits non-zero and no phase's failure is caught:
      SSD scans and 6 flash per prefill, 6 decode attention and no SSD scan
      per decode step; whisper-base: 18 flash per prefill, 12 decode
      attention per step, the 6 cross ones on 3 splits; xlstm-350m: no
-     kernel at all, its path is plain torch in both packages). Then one
+     kernel at all, its path is plain torch in both packages; no serving
+     path launches the SSD scan's backward). Then one
      profiler window over full-width decode steps of each served model, glm4-9b
      and whisper-base: wall time, device busy share, device time by
      kernel family and by kernel; and one profiled zamba2 prefill of a
      63-token prompt, the only place the SSD kernel runs.
   5. train: qwen2-1.5b (28 layers, B=4, S=512), granite-moe-3b-a800m
-     (32 layers, B=2, S=512) and xlstm-350m (24 layers, B=4, S=512) at
-     full width, bf16, remat on, 4 AdamW steps each through
+     (32 layers, B=2, S=512), xlstm-350m (24 layers, B=4, S=512) and
+     zamba2-1.2b (38 Mamba layers, 6 insertions of the shared block, B=4,
+     S=512) at full width, bf16, remat on, 4 AdamW steps each through
      repro_torch.launch.train's train_loop: finite losses and grad norms,
      a gradient for every param on every step, and each step's launches
      as counted (per layer: 2 flash forwards, 1 flash backward; granite
-     also 6 grouped matmuls, 3 dx, 3 dw; xlstm none); step times,
-     tokens/s, peak memory, and one profiled step of each.
+     also 6 grouped matmuls, 3 dx, 3 dw; xlstm none; zamba2 per Mamba
+     layer 2 SSD scans and 1 SSD backward, per insertion 1 flash forward
+     and 1 backward); step times, tokens/s, peak memory, and one profiled
+     step of each.
 The line before the last is a JSON object with every kernel's numbers
 (before_ms: the earlier kernel on the same inputs: the CUDA-core kernel of
 the forward kernels, the earlier copy-then-gmm path of dx and dw): attention and
@@ -105,7 +120,8 @@ grouped matmul at granite-moe-3b-a800m's shapes with their launches from
 granite's poisson5 run, the SSD scan at zamba2-1.2b's prefill shape with its
 launches from zamba2's poisson5 run, the flash backward and the grouped
 matmul's dx and dw at granite's training shapes with their launches from
-granite's train run; the last line is
+granite's train run, the SSD scan's backward at zamba2-1.2b's training
+shape with its launches from zamba2's train run; the last line is
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -124,7 +140,6 @@ import torch
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12      # dense bf16 tensor cores, H100 SXM data sheet
-FP32_FLOP_PER_S = 67e12       # fp32 outside the tensor cores, H100 SXM data sheet
 TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
        torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
 GMM_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),      # tests/test_kernels.py
@@ -167,6 +182,18 @@ FLASH_BWD_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
 GMM_BWD_TOL = {torch.float32: dict(atol=1e-5, rtol=1e-5),
                torch.bfloat16: dict(atol=1e-1, rtol=5e-2)}
 LSE_TOL = dict(atol=1e-5, rtol=1e-5)
+# The SSD scan's backward at the reference's SSD tolerance (fp32 1e-4,
+# tests/test_kernels.py, the test that holds the scan the reference
+# differentiates), bf16 x/B/C/dy at the repo's bf16 one. The fp32 kernel is
+# held to the plain backward in fp64: the plain backward in fp32 itself
+# reaches the tolerance's edge at the train shape (ddt, whose terms are sums
+# over a chunk of products of unit-sized values), so its own ratio is
+# printed beside the kernel's. bf16 rows of dx, dB and dC (and dA, ddt, dD,
+# dinit in norm) within SSD_ROW_REL of the plain backward in fp32: the
+# outputs' rounding to bf16 (2^-9 relative) leaves about 2e-3.
+SSD_BWD_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
+               torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+SSD_BWD_NAMES = ("dx", "ddt", "dA", "dB", "dC", "dD", "dinit")
 # Each bf16 flash gradient against the plain backward in fp32 on the same
 # inputs, ||got - want|| / ||want||: the gradients' rounding to bf16 and P's
 # and dS's (each 2^-9 relative) leave about 3e-3; a dropped tile, a wrong
@@ -178,7 +205,8 @@ XLSTM_PARITY_LAYERS = 6    # one group of slstm_every = 6: 5 mLSTM layers, then 
 ATTENTION_ARCHS = ("qwen2-1.5b", "granite-moe-3b-a800m", "zamba2-1.2b")
 SERVE_ARCHS = ATTENTION_ARCHS + (XLSTM,)
 # The train phase: each model at full width and depth, bf16, (B, S).
-TRAIN_SHAPES = {"qwen2-1.5b": (4, 512), "granite-moe-3b-a800m": (2, 512), XLSTM: (4, 512)}
+TRAIN_SHAPES = {"qwen2-1.5b": (4, 512), "granite-moe-3b-a800m": (2, 512), XLSTM: (4, 512),
+                "zamba2-1.2b": (4, 512)}
 # The trained models with attention, whose flash backward the kernel phase
 # times and whose train step phase 3 holds to the CPU's in fp32.
 ATTENTION_TRAIN_ARCHS = ("qwen2-1.5b", "granite-moe-3b-a800m")
@@ -188,6 +216,9 @@ PARITY_ARCHS = ATTENTION_ARCHS + ("whisper-base", "qwen2-vl-2b", "glm4-9b")
 # zamba2's the SSD scan (and attention).
 MAIN_ARCH = "granite-moe-3b-a800m"
 SSD_ARCH = "zamba2-1.2b"
+# zamba2's train parity: one group of attn_every = 6 Mamba layers and the
+# shared block's insertion; 200 tokens leave a ragged last chunk (3 x 64 + 8)
+SSD_PARITY_LAYERS, SSD_PARITY_S = 6, 200
 SERVE_MAX_LEN = 256
 
 
@@ -433,7 +464,8 @@ def phase_kernels():
     flash, decode = rows[MAIN_ARCH]
     flash["max_abs_err"], decode["max_abs_err"] = flash_err, decode_err
     return [flash, decode, _gmm_kernel(gen, flush), _ssd_kernel(gen, flush),
-            _flash_bwd_kernel(gen, flush), *_gmm_bwd_kernel(gen, flush)]
+            _flash_bwd_kernel(gen, flush), *_gmm_bwd_kernel(gen, flush),
+            _ssd_bwd_kernel(gen, flush)]
 
 
 FLASH_TIMED_S = (64, 256, 2048)   # the 64-token bucket, a longer one, a long prompt
@@ -869,7 +901,7 @@ def _flash_bwd_kernel(gen, flush):
           f"within {lse_err:.3e}; through autograd and a checkpoint bit for bit the kernel's")
 
     rows = {arch: _flash_bwd_row(arch, *TRAIN_SHAPES[arch], gen, flush)
-            for arch in ATTENTION_TRAIN_ARCHS}
+            for arch in ATTENTION_TRAIN_ARCHS + (SSD_ARCH,)}
     for arch, r in rows.items():
         _print_bwd(arch, r)
     row = rows[MAIN_ARCH]
@@ -1015,7 +1047,7 @@ def _ssd_inputs(gen, B, S, H, P, N, dtype, init=False):
 
 def _ssd_cost(B, S, H, P, N, itemsize, init):
     """Bytes the scan must move (each input read once, y and the final state
-    written once) and the fp32 operations it needs: per (b, chunk of v
+    written once) and the operations it needs: per (b, chunk of v
     tokens) C.B^T over u <= t, once for all heads; per head the masked
     scores times x, the read of the carried state (not where that state is
     the zero initial state) and the state update."""
@@ -1092,7 +1124,7 @@ def _ssd_kernel(gen, flush):
     H, P, N = cfg.ssm_nheads, cfg.ssm_head_dim, cfg.ssm_state
     B, S = 1, 64
     args = _ssd_inputs(gen, B, S, H, P, N, torch.bfloat16)
-    bound, by = _bound(*_ssd_cost(B, S, H, P, N, 2, False), flop_rate=FP32_FLOP_PER_S)
+    bound, by = _bound(*_ssd_cost(B, S, H, P, N, 2, False))
     ssd = {"name": "ssd_scan", "route": "cuda",
            "source": "src/repro_torch/csrc/mamba_scan.cu",
            "replaces": "src/repro/kernels/mamba_scan/kernel.py:79",
@@ -1105,12 +1137,12 @@ def _ssd_kernel(gen, flush):
            "shape": f"B={B} S={S} H={H} P={P} N={N} bf16 x/B/C"}
     print(f"[kernels] ssd_scan at {SSD_ARCH}'s {ssd['shape']}: kernel {ssd['ms']:.4f} ms "
           f"(before: {ssd['before_ms']:.4f}), plain {ssd['plain_ms']:.4f} ms, no library call, "
-          f"bound {ssd['bound_ms']:.6f} ms ({ssd['bound_by']}, fp32 rate); "
+          f"bound {ssd['bound_ms']:.6f} ms ({ssd['bound_by']}, bf16 rate); "
           f"host enqueue {ssd['host_us']:.1f} us/call")
     sweep = []
     for S in (256, 1000):
         args = _ssd_inputs(gen, B, S, H, P, N, torch.bfloat16)
-        b_ms, b_by = _bound(*_ssd_cost(B, S, H, P, N, 2, False), flop_rate=FP32_FLOP_PER_S)
+        b_ms, b_by = _bound(*_ssd_cost(B, S, H, P, N, 2, False))
         sweep.append(f"S={S}: {_time_ms(lambda: ms_ops.ssd_scan(*args, with_state=True), flush):.4f} ms "
                      f"(before: {_time_ms(lambda: _ssd_before(*args), flush):.4f}; "
                      f"bound {b_ms:.6f}, {b_by})")
@@ -1137,6 +1169,172 @@ def _ssd_before(x, dt, A, Bm, Cm, D, init):
                         x.device.index, torch.cuda.current_stream().cuda_stream)
     assert err == 0, f"ssd before: error {err}"
     return y, final
+
+
+def _ssd_bwd_cost(B, S, H, P, N, itemsize, init):
+    """Bytes the scan's backward must move (x, B, C, dy, dt, A, D and the
+    initial state read once; dx, dB, dC, ddt, dA, dD and dinit written once)
+    and the operations it needs: per (b, chunk of v tokens) C.B^T over
+    u <= t, once for all heads; per head the chunk start states' recompute
+    (every chunk but the last), dy.x^T, dx's and dB's and dC's sums over the
+    triangle, and the products with the state's adjoint G (G B and G^T x; not
+    in the last chunk, where G is zero), with the start state (S0^T dy; not
+    where that is the zero initial state) and G's update (not after the first
+    chunk unless there is an initial state)."""
+    nbytes = itemsize * (3 * B * S * H * P + 4 * B * S * N) + 4 * 2 * (B * S * H + 2 * H) \
+        + 4 * B * H * P * N * (2 if init else 1)
+    flops, starts = 0, list(range(0, S, 64))
+    for c, c0 in enumerate(starts):
+        v = min(64, S - c0)
+        tri = v * (v + 1) // 2
+        last, first = c == len(starts) - 1, c == 0
+        state_ops = (not last) * 3 + (not first or init) * 2   # recompute, G B, G^T x | S0^T dy, G update
+        flops += B * (2 * tri * N + H * (2 * tri * P + 2 * tri * P + 2 * 2 * tri * N
+                                         + state_ops * 2 * v * P * N))
+    return nbytes, flops
+
+
+def _ssd_bwd_check(what, got, args, dy):
+    """One backward call against the plain backward: fp32 against the plain
+    pass in fp64 (returns the largest share of the tolerance, the kernel's
+    and the fp32 plain pass's); bf16 against the plain pass on the same
+    inputs, and within SSD_ROW_REL of the plain pass in fp32 (returns the
+    largest row error). Returns (max abs err, ratio or row error, plain
+    fp32 ratio or 0)."""
+    from repro_torch.kernels.mamba_scan import ref as ms_ref
+
+    dtype = args[0].dtype
+    tol = SSD_BWD_TOL[dtype]
+    if dtype == torch.float32:
+        want = ms_ref.ssd_backward_reference(*[None if a is None else a.double() for a in args],
+                                             dy.double())
+        plain = ms_ref.ssd_backward_reference(*args, dy)
+        share = lambda a, w: ((a.double() - w).abs() / (tol["atol"] + tol["rtol"] * w.abs())).max().item()  # noqa: E731
+        err = ratio = own = 0.0
+        for name, g, w, p in zip(SSD_BWD_NAMES, got, want, plain):
+            err = max(err, _check(f"{what} {name}", g.double(), w, **tol))
+            ratio, own = max(ratio, share(g, w)), max(own, share(p, w))
+        return err, ratio, own
+    same = ms_ref.ssd_backward_reference(*args, dy)
+    x, dt, A, Bm, Cm, D, s0 = args
+    exact = ms_ref.ssd_backward_reference(x.float(), dt, A, Bm.float(), Cm.float(), D, s0,
+                                          dy.float())
+    err = rel = 0.0
+    for name, g, w, e in zip(SSD_BWD_NAMES, got, same, exact):
+        assert g.dtype == w.dtype, f"{what} {name}: {g.dtype}, plain {w.dtype}"
+        err = max(err, _check(f"{what} {name}", g, w, **tol))
+        r = _row_rel(g, e) if name in ("dx", "dB", "dC") else _rel(g, e)
+        assert r <= SSD_ROW_REL, f"{what} {name}: error {r:.3e} exceeds {SSD_ROW_REL} of the norm"
+        rel = max(rel, r)
+    return err, rel, 0.0
+
+
+def _ssd_bwd_kernel(gen, flush):
+    """The SSD scan's backward kernel (B7) against its plain version: the
+    forward's cases (the test sweep's (H, P, N), P = 24 and 12, which 16 does
+    not divide, every N of STATE_DIMS, zamba2's (64, 64, 64); S from 1 to
+    1000, ragged tails; B 1, and 3 with a nonzero initial state) and
+    zamba2's layout (x, B and C column slices of one conv buffer, B 1 and
+    2); fp32 and bf16, every case twice, bit for bit. Then through autograd
+    and under a checkpoint: an ssd_scan call under grad whose backward goes
+    through the kernel (counted), bit for bit the kernel's, and held to the
+    plain version's autograd (fp64 for the fp32 kernel, at its tolerance;
+    fp32 for the bf16 one, in rows). Timed at zamba2-1.2b's train shape (B=4,
+    S=512, bf16, x/B/C the conv buffer's slices, dy contiguous) beside the
+    plain backward and the bound."""
+    from torch.utils.checkpoint import checkpoint
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.mamba_scan import ops as ms_ops
+    from repro_torch.kernels.mamba_scan import ref as ms_ref
+
+    def conv_slices(B, S, H, P, N, dtype):
+        buf = _randn(gen, B, S, H * P + 2 * N, dtype=dtype)
+        _, dt, A, _, _, D, _ = _ssd_inputs(gen, B, S, H, P, N, dtype)
+        return (buf[..., :H * P].view(B, S, H, P), dt, A, buf[..., H * P:H * P + N],
+                buf[..., H * P + N:], D, None)
+
+    summary = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        cases = [(f"B={B} S={S} H={H} P={P} N={N}", _ssd_inputs(gen, B, S, H, P, N, dtype,
+                                                                 init=B == 3))
+                 for H, P, N in ((2, 16, 16), (3, 16, 32), (1, 64, 64), (2, 24, 32), (2, 12, 16),
+                                 (2, 32, 128), (64, 64, 64))
+                 for S in (1, 8, 63, 64, 100, 128, 200, 1000) for B in (1, 3)]
+        cases += [(f"strided B={B} S={S}", conv_slices(B, S, 64, 64, 64, dtype))
+                  for B, S in ((1, 63), (1, 200), (2, 200))]
+        err = share = own = 0.0
+        for what, args in cases:
+            dy = _randn(gen, *args[0].shape, dtype=dtype)
+            got = ms_ops.ssd_scan_bwd(*args, dy)
+            again = ms_ops.ssd_scan_bwd(*args, dy)
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(got, again)), \
+                f"ssd bwd {dtype} {what}: two calls differ"
+            e, r, o = _ssd_bwd_check(f"ssd bwd {dtype} {what}", got, args, dy)
+            err, share, own = max(err, e), max(share, r), max(own, o)
+        summary[dtype] = err
+        if dtype == torch.float32:
+            print(f"[kernels] ssd_scan_bwd float32: {len(cases)} cases match the plain backward "
+                  f"in fp64, max abs err {err:.3e} ({share:.3f} of the tolerance at most; the "
+                  f"plain backward in fp32 reaches {own:.3f} of it); two calls bit for bit")
+        else:
+            print(f"[kernels] ssd_scan_bwd bfloat16: {len(cases)} cases match the plain backward "
+                  f"on the same inputs, max abs err {err:.3e}; dx, dB, dC rows (the rest in "
+                  f"norm) within {share:.3e} of the fp32 plain backward; two calls bit for bit")
+
+    # through autograd and a checkpoint: the Function's backward is the kernel
+    for dtype in (torch.float32, torch.bfloat16):
+        x, dt, A, Bm, Cm, D, _ = conv_slices(2, 200, 64, 64, 64, dtype)
+        s0 = _randn(gen, 2, 64, 64, 64, dtype=torch.float32)
+        dy = _randn(gen, *x.shape, dtype=dtype)
+        direct = ms_ops.ssd_scan_bwd(x, dt, A, Bm, Cm, D, s0, dy)
+        for remat in (False, True):
+            leaves = [t.detach().clone().requires_grad_() for t in (x, dt, A, Bm, Cm, D, s0)]
+            before = ms_ops.ssd_scan_bwd.launches
+            y = checkpoint(ms_ops.ssd_scan, *leaves, use_reentrant=False) if remat \
+                else ms_ops.ssd_scan(*leaves)
+            y.backward(dy)
+            assert ms_ops.ssd_scan_bwd.launches == before + 1, "the backward kernel did not run"
+            auto = [t.grad for t in leaves]
+            assert all(torch.equal(a, b) for a, b in zip(auto, direct)), \
+                f"ssd_scan through autograd ({dtype}, checkpointed: {remat}) differs from the kernel"
+        # the plain version's autograd: in fp64 for the fp32 kernel (as its
+        # direct checks), in fp32 for the bf16 one (as its row checks)
+        wide = torch.float64 if dtype == torch.float32 else torch.float32
+        plain = [t.detach().to(wide).requires_grad_() for t in (x, dt, A, Bm, Cm, D, s0)]
+        grads = torch.autograd.grad(ms_ref.ssd_chunked_reference(*plain)[0], plain, dy.to(wide))
+        for name, a, b in zip(SSD_BWD_NAMES, direct, grads):
+            if dtype == torch.float32:
+                _check(f"ssd_scan autograd fp32 {name}", a.double(), b, **SSD_BWD_TOL[dtype])
+            else:
+                r = _row_rel(a, b) if name in ("dx", "dB", "dC") else _rel(a, b)
+                assert r <= SSD_ROW_REL, f"ssd_scan autograd bf16 {name}: {r:.3e} of the norm"
+    print("[kernels] ssd_scan under grad: the backward through autograd and under a checkpoint "
+          "is the kernel's, bit for bit (fp32, bf16), and matches the plain version's autograd")
+
+    cfg = get_config(SSD_ARCH)
+    H, P, N = cfg.ssm_nheads, cfg.ssm_head_dim, cfg.ssm_state
+    B, S = TRAIN_SHAPES[SSD_ARCH]
+    args = conv_slices(B, S, H, P, N, torch.bfloat16)
+    dy = _randn(gen, B, S, H, P, dtype=torch.bfloat16)
+    nbytes, flops = _ssd_bwd_cost(B, S, H, P, N, 2, False)
+    bound, by = _bound(nbytes, flops)
+    call = lambda: ms_ops.ssd_scan_bwd(*args, dy)  # noqa: E731
+    row = {"name": "ssd_scan_bwd", "route": "cuda",
+           "source": "src/repro_torch/csrc/mamba_scan_bwd.cu",
+           "replaces": "src/repro/kernels/mamba_scan/ops.py:25",
+           "max_abs_err": max(summary.values()),
+           "ms": _time_ms(call, flush),
+           "plain_ms": _time_ms(lambda: ms_ref.ssd_backward_reference(*args, dy), flush, reps=10),
+           "bound_ms": bound, "bound_by": by, "library_ms": None, "host_us": _host_us(call),
+           "shape": f"B={B} S={S} H={H} P={P} N={N} bf16 x/B/C/dy"}
+    print(f"[kernels] ssd_scan_bwd at {SSD_ARCH}'s train shape {row['shape']} (x/B/C slices of "
+          f"the conv buffer): kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, no "
+          f"library call, bound {bound:.6f} ms ({by}, bf16 rate: {nbytes / 1e6:.1f} MB, "
+          f"{flops / 1e9:.2f} GFLOP; the bytes alone {nbytes / HBM_BYTES_PER_S * 1e3:.6f} ms, "
+          f"the operations {flops / BF16_FLOP_PER_S * 1e3:.6f} ms); "
+          f"host enqueue {row['host_us']:.1f} us/call")
+    return row
 
 
 # ---------------------------------------------------------------- phase 3
@@ -1364,7 +1562,8 @@ def _kernel_ops():
             "grouped_matmul": gmm_ops.grouped_matmul,
             "grouped_matmul_dx": gmm_ops.grouped_matmul_dx,
             "grouped_matmul_dw": gmm_ops.grouped_matmul_dw,
-            "ssd_scan": ms_ops.ssd_scan}
+            "ssd_scan": ms_ops.ssd_scan,
+            "ssd_scan_bwd": ms_ops.ssd_scan_bwd}
 
 
 def _per_call_launches(cfg):
@@ -1517,13 +1716,21 @@ def _train_launches(cfg):
     forward runs twice (once in the backward pass), so two flash forwards
     and one flash backward per layer, and for MoE six grouped matmuls (gate,
     up, down, twice) and one dx and one dw for each of the three. The
-    xLSTM launches none."""
-    L = 0 if cfg.family == "ssm" else cfg.n_layers      # attention layers
+    hybrid: two SSD scans (the second in the backward pass) and one SSD
+    backward per Mamba layer, and one flash forward and backward per
+    insertion of the shared block, which is not checkpointed. The xLSTM
+    launches none."""
     runs = 2 if cfg.remat else 1
+    if cfg.family == "hybrid":
+        ni = cfg.n_layers // cfg.attn_every
+        return {"flash_attention": ni, "flash_attention_bwd": ni, "decode_attention": 0,
+                "grouped_matmul": 0, "grouped_matmul_dx": 0, "grouped_matmul_dw": 0,
+                "ssd_scan": runs * cfg.n_layers, "ssd_scan_bwd": cfg.n_layers}
+    L = 0 if cfg.family == "ssm" else cfg.n_layers      # attention layers
     gmm = 3 * L if cfg.family == "moe" else 0
     return {"flash_attention": runs * L, "flash_attention_bwd": L, "decode_attention": 0,
             "grouped_matmul": runs * gmm, "grouped_matmul_dx": gmm, "grouped_matmul_dw": gmm,
-            "ssd_scan": 0}
+            "ssd_scan": 0, "ssd_scan_bwd": 0}
 
 
 def phase_train(arch, profile=True):
@@ -1561,6 +1768,7 @@ def phase_train(arch, profile=True):
         if "window" in prof:
             prof["window"].__exit__(None, None, None)
             prof["wall_ms"] = 1e3 * (now - last["t"])
+            prof["close_s"] = time.perf_counter() - now
         if profile and i == TRAIN_STEPS - 2:
             from torch.profiler import ProfilerActivity, profile as torch_profile
             prof["window"] = torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
@@ -1592,8 +1800,11 @@ def phase_train(arch, profile=True):
           f"first with warm-up); steady {steady * 1e3:.1f} ms/step, {B * S / steady:.0f} tokens/s; "
           f"peak device memory {peak:.1f} GB")
     if "window" in prof:
+        t0 = time.perf_counter()
         _report_profile(f"train step, {arch} {cfg.dtype}, B={B} S={S}", prof["window"],
                         prof["wall_ms"], 1)
+        print(f"[time] 5 train {arch}: the profiler's window closed in {prof['close_s']:.1f}s, "
+              f"its report took {time.perf_counter() - t0:.1f}s")
     del params, opt_state
     torch.cuda.empty_cache()
     return launches
@@ -1699,7 +1910,8 @@ KERNEL_FAMILIES = {"grouped matmul": ("gmm_kernel", "gmm_mma_kernel", "gmm_tiled
                    "attention": ("flash_fwd_kernel", "flash_mma_kernel", "decode_kernel",
                                  "decode_split_kernel"),
                    "attention backward": ("flash_bwd_",),
-                   "ssd scan": ("ssd_scan_kernel", "ssd_mma_kernel")}
+                   "ssd scan": ("ssd_scan_kernel", "ssd_mma_kernel"),
+                   "ssd scan backward": ("ssd_bwd_",)}
 
 
 def _profiled(what, fn, calls):
@@ -1765,6 +1977,14 @@ def phase_profile(arch, steps=4):
     torch.cuda.empty_cache()
 
 
+@contextlib.contextmanager
+def _timed(what):
+    """Prints the wall time of the phase run inside the ``with``."""
+    t0 = time.time()
+    yield
+    print(f"[time] {what}: {time.time() - t0:.1f}s", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; nothing was run")
@@ -1775,31 +1995,49 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.time()
-    phase_device()
-    kernels = phase_kernels()
+    with _timed("1 device and build"):
+        phase_device()
+    with _timed("2 kernels"):
+        kernels = phase_kernels()
     for arch in PARITY_ARCHS:
-        phase_parity(arch)
-    phase_parity_xlstm()
+        with _timed(f"3 parity {arch}"):
+            phase_parity(arch)
+    with _timed(f"3 parity {XLSTM}"):
+        phase_parity_xlstm()
     for arch in ATTENTION_TRAIN_ARCHS:
-        phase_train_parity(arch)
+        with _timed(f"3 train parity {arch}"):
+            phase_train_parity(arch)
     # fp64: in fp32 a token whose denominator lies within rounding of its
     # clamp can take the other side of the kink (PERF.md section 6)
-    phase_train_parity(XLSTM, n_layers=XLSTM_PARITY_LAYERS, S=512, dtype="float64")
-    runs = {arch: phase_serve(arch) for arch in SERVE_ARCHS}
-    phase_multi_llm()
-    phase_model_api("whisper-base", B=8, S=16, profile_steps=4)
-    phase_model_api("qwen2-vl-2b", B=2, S=32)
-    for arch in SERVE_ARCHS + ("glm4-9b",):
-        phase_profile(arch)
-    trained = {arch: phase_train(arch) for arch in TRAIN_SHAPES}
+    with _timed(f"3 train parity {XLSTM}"):
+        phase_train_parity(XLSTM, n_layers=XLSTM_PARITY_LAYERS, S=512, dtype="float64")
+    with _timed(f"3 train parity {SSD_ARCH}"):
+        phase_train_parity(SSD_ARCH, n_layers=SSD_PARITY_LAYERS, S=SSD_PARITY_S)
+    runs = {}
+    for arch in SERVE_ARCHS:
+        with _timed(f"4 serve {arch}"):
+            runs[arch] = phase_serve(arch)
+    with _timed("4 multi-LLM and model API"):
+        phase_multi_llm()
+        phase_model_api("whisper-base", B=8, S=16, profile_steps=4)
+        phase_model_api("qwen2-vl-2b", B=2, S=32)
+    with _timed("4 profiles"):
+        for arch in SERVE_ARCHS + ("glm4-9b",):
+            phase_profile(arch)
+    trained = {}
+    for arch in TRAIN_SHAPES:
+        with _timed(f"5 train {arch}"):
+            trained[arch] = phase_train(arch)
     # each kernel's launches on its path's run: the forward kernels on the
     # poisson5 serving run (granite's runs attention and the grouped matmul,
-    # zamba2's the SSD scan), the backward ones on granite's train run; each
-    # path's own counts per prefill, decode step and train step were checked
-    # in phases 4 and 5
+    # zamba2's the SSD scan), the backward ones on granite's train run, the
+    # SSD scan's backward on zamba2's; each path's own counts per prefill,
+    # decode step and train step were checked in phases 4 and 5
     for r in kernels:
         if r["name"] in ("flash_attention_bwd", "grouped_matmul_dx", "grouped_matmul_dw"):
             arch, r["launches"] = MAIN_ARCH, trained[MAIN_ARCH][r["name"]]
+        elif r["name"] == "ssd_scan_bwd":
+            arch, r["launches"] = SSD_ARCH, trained[SSD_ARCH][r["name"]]
         else:
             arch = SSD_ARCH if r["name"] == "ssd_scan" else MAIN_ARCH
             r["launches"] = runs[arch]["poisson5"][0][r["name"]]

@@ -26,12 +26,11 @@
 // stored.
 //
 // What bounds it on the H100: at zamba2-1.2b's prefill (B = 1, S <= 63,
-// H = P = N = 64) neither bytes nor operations: 0.5 MB and 0.05 GFLOP per
-// call are well under a microsecond at 3.35 TB/s or on the tensor cores.
-// Latency bounds it: each block's chain of dependent products, barriers and
-// exponentials over a chunk. Counted as fp32 CUDA-core work (67 TFLOP/s),
-// the bound is the operations' (the repo keeps that count so that readings
-// stay comparable); the bytes alone bound it at about 0.64 us.
+// H = P = N = 64) neither bytes nor operations: 2.1 MB and 0.05 GFLOP per
+// call are well under a microsecond at 3.35 TB/s or on the bf16 tensor
+// cores, the peak rate for its inputs' type (the bytes' 0.64 us is the
+// bound). Latency bounds it: each block's chain of dependent products,
+// barriers and exponentials over a chunk.
 //
 // Design of the bf16 kernel (ssd_mma_kernel, x/B/C bf16):
 // - One block of 4 warps per (kPW columns of P, head, b); the chunk axis

@@ -7,29 +7,34 @@ Semantics (per batch b, head h; state S in R^{P x N}):
     S_t   = lam_t * S_{t-1} + (dt_t * x_t) outer B_t
     y_t   = S_t @ C_t + D_h * x_t
 Shapes: x (B,S,H,P), dt (B,S,H) [post-softplus], A (H,), B/C (B,S,N),
-D (H,), init_state (B,H,P,N). All math is fp32; y comes back in x's dtype
-and the final state in fp32.
+D (H,), init_state (B,H,P,N). All math is fp32 (fp64 when x is fp64); y
+comes back in x's dtype and the final state in the math's.
 """
 from __future__ import annotations
 
 import torch
 
 
-def _fp32(*ts):
-    return [t.float() for t in ts]
+def _work(x):
+    """The math's dtype: fp32, or fp64 for fp64 inputs."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
+def _wide(x, *ts):
+    return [t.to(_work(x)) for t in ts]
 
 
 def _init(x, N, init_state):
     Bsz, _, H, P = x.shape
     if init_state is None:
-        return torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=x.device)
-    return init_state.float()
+        return torch.zeros((Bsz, H, P, N), dtype=_work(x), device=x.device)
+    return init_state.to(_work(x))
 
 
 def ssd_reference(x, dt, A, Bmat, Cmat, D, init_state=None):
     """The token-by-token scan. Returns (y (B,S,H,P), final_state)."""
     state = _init(x, Bmat.shape[-1], init_state)
-    xf, dtf, Bf, Cf, Af, Df = _fp32(x, dt, Bmat, Cmat, A, D)
+    xf, dtf, Bf, Cf, Af, Df = _wide(x, x, dt, Bmat, Cmat, A, D)
     ys = []
     for t in range(x.shape[1]):
         xt, dtt = xf[:, t], dtf[:, t]                      # (B,H,P), (B,H)
@@ -53,7 +58,7 @@ def ssd_chunked_reference(x, dt, A, Bmat, Cmat, D, init_state=None,
     state = _init(x, N, init_state)
     nc = -(-S // chunk)
     pad = nc * chunk - S
-    xf, dtf, Bf, Cf, Af, Df = _fp32(x, dt, Bmat, Cmat, A, D)
+    xf, dtf, Bf, Cf, Af, Df = _wide(x, x, dt, Bmat, Cmat, A, D)
     if pad:
         xf, dtf, Bf, Cf = (torch.nn.functional.pad(a, (0, 0) * (a.dim() - 2) + (0, pad))
                            for a in (xf, dtf, Bf, Cf))
@@ -81,6 +86,83 @@ def ssd_chunked_reference(x, dt, A, Bmat, Cmat, D, init_state=None,
         ys.append(y)
     y = torch.cat(ys, 1)[:, :S]
     return y.to(x.dtype), state
+
+
+def ssd_backward_reference(x, dt, A, Bmat, Cmat, D, init_state, dy, chunk: int = 64):
+    """The VJP of the scan's y (not of its final state, which no gradient
+    enters), written as the chunked reverse pass the backward kernel runs.
+    Returns (dx, ddt, dA, dB, dC, dD, dinit): dx, dB and dC in x's, B's and
+    C's dtypes, the rest in fp32; all arithmetic in fp32 (fp64 when x is
+    fp64). A forward sweep recomputes each chunk's start state S0; then,
+    from the last chunk to the first, with G the adjoint of the chunk's end
+    state (0 after the last chunk), T the chunk length, cum_t the running
+    sum of dt_u A over the chunk and M[t,u] = (C_t.B_u) dt_u e^{cum_t-cum_u}
+    for u <= t:
+        dx_u  = sum_{t>=u} M[t,u] dy_t + D dy_u + dt_u e^{cum_T-cum_u} G B_u
+        dC_t += sum_{u<=t} (dy_t.x_u) dt_u e^{cum_t-cum_u} B_u + e^{cum_t} S0^T dy_t
+        dB_u += sum_{t>=u} (dy_t.x_u) dt_u e^{cum_t-cum_u} C_t
+                + dt_u e^{cum_T-cum_u} G^T x_u
+        G    <- e^{cum_T} G + sum_t e^{cum_t} dy_t C_t^T   (dinit after chunk 0)
+    and dD = sum dy.x. dt enters directly through dt_u and through cum: the
+    adjoint of cum_t is collected, its reverse running sum r_t over the chunk
+    taken, and A r_t added to ddt_t, sum_t dt_t r_t to dA. The exponent is
+    taken only where u <= t, and a ragged last chunk is padded with dt = 0,
+    as in the forward."""
+    Bsz, S, H, P = x.shape
+    N = Bmat.shape[-1]
+    nc = -(-S // chunk)
+    pad = nc * chunk - S
+    xf, dyf, dtf, Bf, Cf, Af, Df = _wide(x, x, dy, dt, Bmat, Cmat, A, D)
+    if pad:
+        xf, dyf, dtf, Bf, Cf = (torch.nn.functional.pad(a, (0, 0) * (a.dim() - 2) + (0, pad))
+                                for a in (xf, dyf, dtf, Bf, Cf))
+    state = _init(x, N, init_state)
+    starts = []
+    for c in range(nc):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        starts.append(state)
+        cum = torch.cumsum(dtf[:, sl] * Af, dim=1)
+        w = torch.exp(cum[:, -1:, :] - cum) * dtf[:, sl]
+        state = torch.exp(cum[:, -1, :])[..., None, None] * state + \
+            torch.einsum("bthp,btn,bth->bhpn", xf[:, sl], Bf[:, sl], w)
+
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=x.device))
+    G = torch.zeros_like(state)
+    dx, ddt, dB, dC = (torch.empty_like(a) for a in (xf, dtf, Bf, Cf))
+    dA, dD = torch.zeros_like(Af), torch.zeros_like(Df)
+    for c in reversed(range(nc)):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        xc, dyc, dtc, Bc, Cc, S0 = xf[:, sl], dyf[:, sl], dtf[:, sl], Bf[:, sl], Cf[:, sl], starts[c]
+        cum = torch.cumsum(dtc * Af, dim=1)                               # (B,T,H)
+        cT = cum[:, -1, :]                                                # (B,H)
+        diff = cum[:, :, None, :] - cum[:, None, :, :]                    # (B,T,U,H)
+        decay = torch.exp(torch.where(tri[None, :, :, None], diff, 0.0)) * tri[None, :, :, None]
+        cb = torch.einsum("btn,bun->btu", Cc, Bc)[..., None]              # (B,T,U,1)
+        dxy = torch.einsum("bthp,buhp->btuh", dyc, xc)                    # dy_t.x_u
+        K = dxy * cb * decay                  # d y-part / d dt_u, before dt_u
+        M = cb * dtc[:, None] * decay
+        W = dxy * dtc[:, None] * decay
+        Q = K * dtc[:, None]                  # d / d cum_t (row t), - d / d cum_u (column u)
+        ecum, erev = torch.exp(cum), torch.exp(cT[:, None, :] - cum)      # (B,T,H)
+        w = erev * dtc
+        GB = torch.einsum("bhpn,bun->buhp", G, Bc)                         # G B_u
+        xGB = (xc * GB).sum(-1)                                           # x_u^T G B_u
+        inter = ecum[..., None] * torch.einsum("bhpn,bthp->bthn", S0, dyc)  # e^{cum_t} S0^T dy_t
+        dx[:, sl] = torch.einsum("btuh,bthp->buhp", M, dyc) + Df[:, None] * dyc + \
+            w[..., None] * GB
+        dC[:, sl] = torch.einsum("btuh,bun->btn", W, Bc) + inter.sum(2)
+        dB[:, sl] = torch.einsum("btuh,btn->bun", W, Cc) + \
+            torch.einsum("bth,bthp,bhpn->btn", w, xc, G)
+        dcum = Q.sum(2) - Q.sum(1) + torch.einsum("bthn,btn->bth", inter, Cc) - w * xGB
+        dcum[:, -1] += torch.exp(cT) * (G * S0).sum((-2, -1)) + (w * xGB).sum(1)
+        r = dcum.flip(1).cumsum(1).flip(1)                                # sum_{t'>=t}
+        ddt[:, sl] = K.sum(1) + erev * xGB + Af * r
+        dA = dA + (dtc * r).sum((0, 1))
+        dD = dD + torch.einsum("bthp,bthp->h", dyc, xc)
+        G = torch.exp(cT)[..., None, None] * G + \
+            torch.einsum("bth,bthp,btn->bhpn", ecum, dyc, Cc)
+    return (dx[:, :S].to(x.dtype), ddt[:, :S], dA, dB[:, :S].to(Bmat.dtype),
+            dC[:, :S].to(Cmat.dtype), dD, G)
 
 
 def ssd_decode_step(state, xt, dtt, A, Bt, Ct, D):

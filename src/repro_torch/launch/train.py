@@ -4,10 +4,12 @@ A port of the JAX package's ``launch/train.py``: synthetic data with
 prefetch, AdamW with a cosine (WSD for minicpm) schedule and clipping,
 activation checkpointing from the config, async checkpoint/restore
 (a restart resumes from the latest step), periodic metrics. It runs on the
-card unless ``--device cpu`` is given; there the attention and expert
-products run in the hand-written kernels and their backward kernels.
+card unless ``--device cpu`` is given; there the attention, expert
+products and SSD scans run in the hand-written kernels and their backward
+kernels.
 
     python -m repro_torch.launch.train --arch qwen2-1.5b --full     # one card
+    python -m repro_torch.launch.train --arch zamba2-1.2b --full    # the hybrid, one card
     python -m repro_torch.launch.train --device cpu --steps 20      # smoke config
 
 Unlike the reference, whose resume unpacks ``(None, 0)`` and raises, a

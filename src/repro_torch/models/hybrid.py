@@ -5,8 +5,8 @@ attention+MLP block (a single weight set) applied after every
 
 Decode state is O(1) per sequence (SSM state + conv tail) plus a KV cache
 only at the few shared-attention insertion points. The SSD scan of a
-prefill runs in the hand-written kernel; decode updates the SSM, conv and
-KV caches in place.
+prefill or a train step runs in the hand-written kernel (its gradient in the
+backward kernel); decode updates the SSM, conv and KV caches in place.
 """
 from __future__ import annotations
 
@@ -181,14 +181,17 @@ def _layers(params, cfg) -> List[Dict]:
 
 
 def forward(params, cfg, batch):
-    """Teacher-forced logits (B, S, Vp) and the aux loss (0.0)."""
+    """Teacher-forced logits (B, S, Vp) and the aux loss (0.0). Each Mamba
+    layer runs under ``cm.remat`` (checkpointed when ``cfg.remat`` is set and
+    a gradient is taken), as the JAX package checkpoints its scanned Mamba
+    body; the shared block is not checkpointed there, nor here."""
     tokens = batch["tokens"]
     h = emb0 = cm.embed_tokens(params["emb"], tokens)
     positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
     layers = _layers(params, cfg)
     for lo, hi, has_attn in _groups(cfg):
         for lp in layers[lo:hi]:
-            h = mamba_forward(lp, cfg, h)
+            h = cm.remat(cfg, mamba_forward, lp, cfg, h)
         if has_attn:
             h = shared_forward(params["shared"], cfg, h, emb0, positions)
     h = cm.rmsnorm(h, params["ln_f"], cfg.norm_eps)

@@ -179,7 +179,8 @@ def test_build_command_targets_sm90a(monkeypatch):
     assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" in cmd
     assert cmd[-1].endswith("csrc/flash_attention.cu")
     assert set(build.sources()) == {"flash_attention", "flash_attention_bwd",
-                                    "decode_attention", "moe_gmm", "mamba_scan"}
+                                    "decode_attention", "moe_gmm", "mamba_scan",
+                                    "mamba_scan_bwd"}
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):

@@ -32,12 +32,15 @@ TOL = dict(atol=2e-4, rtol=2e-3)
 PARAM_TOL = dict(atol=1e-5, rtol=1e-4)
 # The xLSTM's global grad norm is 24-29 in the three JAX steps (the other
 # archs': 5-7), so clipping to 1 scales its gradients down about 5x more,
-# and 0.22% of its elements fall within 10 eps of zero (the others: 0.06-0.09%)
-ILL_SHARE = {"xlstm-350m": 3e-3}
-# (arch, moe_impl): dense, MoE on both dispatch paths, VLM, audio and xLSTM
+# and 0.22% of its elements fall within 10 eps of zero (the others: 0.06-0.09%).
+# zamba2's smoke config: 0.11% (311 of 283,336 elements in JAX's three steps,
+# 155 of them embedding rows and 77 in the Mamba layers' in_proj)
+ILL_SHARE = {"xlstm-350m": 3e-3, "zamba2-1.2b": 1.5e-3}
+# (arch, moe_impl): dense, MoE on both dispatch paths, VLM, audio, xLSTM and
+# the hybrid
 LOSS_CASES = [("qwen2-1.5b", None), ("granite-moe-3b-a800m", "onehot"),
               ("granite-moe-3b-a800m", "sorted"), ("qwen2-vl-2b", None),
-              ("whisper-base", None), ("xlstm-350m", None)]
+              ("whisper-base", None), ("xlstm-350m", None), ("zamba2-1.2b", None)]
 
 
 def _configs(arch, moe_impl=None):
@@ -138,7 +141,8 @@ def test_adamw_update_matches_jax():
 @pytest.mark.parametrize("arch,schedule", [("qwen2-1.5b", "cosine"),
                                            ("granite-moe-3b-a800m", "cosine"),
                                            ("minicpm-2b", "wsd"),
-                                           ("xlstm-350m", "cosine")])
+                                           ("xlstm-350m", "cosine"),
+                                           ("zamba2-1.2b", "cosine")])
 def test_three_train_steps_match_jax(arch, schedule):
     """Three steps from the same params and batches. At most 1e-3 of the
     elements (ILL_SHARE for an arch named there) may be exempt as
@@ -248,6 +252,39 @@ def test_xlstm_remat_gives_the_same_grads(monkeypatch):
         out.append(torch.autograd.grad(loss, list(flat.values())))
         n_calls.append(len(calls))
     assert n_calls == [2 * xlstm.n_mlstm(cfg), xlstm.n_mlstm(cfg)], n_calls
+    for a, b in zip(*out):
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-6)
+
+
+def test_hybrid_remat_gives_the_same_grads(monkeypatch):
+    """Under activation checkpointing each Mamba layer, and only it, runs
+    under torch.utils.checkpoint (the shared attention block is not
+    checkpointed, as in the JAX package), so its forward runs again in the
+    backward pass; the gradients are the same as without it."""
+    from repro_torch.models import hybrid
+    real, calls = hybrid.mamba_forward, []
+    monkeypatch.setattr(hybrid, "mamba_forward", lambda *a: calls.append(1) or real(*a))
+    real_ckpt, wrapped = cm.checkpoint, []
+    monkeypatch.setattr(cm, "checkpoint",
+                        lambda fn, *a, **k: wrapped.append(fn) or real_ckpt(fn, *a, **k))
+    cfg = get_smoke_config("zamba2-1.2b")
+    batch = _torch(_batch(cfg))
+    out, n_calls, n_wrapped = [], [], []
+    for remat in (True, False):
+        calls.clear()
+        wrapped.clear()
+        c = cfg.with_(remat=remat)
+        params = mapi.get_model(c).init(torch.Generator().manual_seed(0), c)
+        flat = cm.flatten(params)
+        for p in flat.values():
+            p.requires_grad_(True)
+        loss, _ = steps.loss_fn(params, c, batch)
+        assert all(fn is hybrid.mamba_forward for fn in wrapped)
+        n_wrapped.append(len(wrapped))
+        out.append(torch.autograd.grad(loss, list(flat.values())))
+        n_calls.append(len(calls))
+    assert n_wrapped == [cfg.n_layers, 0], n_wrapped
+    assert n_calls == [2 * cfg.n_layers, cfg.n_layers], n_calls
     for a, b in zip(*out):
         torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-6)
 

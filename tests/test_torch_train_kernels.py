@@ -11,11 +11,22 @@ are held against the same plain versions on the card by chip_smoke.py; the
 shapes here include those whose C, d and f fall past the card kernels' tile
 edges (the gradients' GEMM: 128 x 128 output tiles, K in steps of 64) and
 qwen2-1.5b's 6 query heads per KV head at D = 128.
-Also: a CUDA-routed decode attention or SSD scan raises under grad, since
-neither kernel has a backward; the CUDA-routed gmm gradients hand the
-operands to the kernel as they lie (no transposed copy); the flash
-backward's split of the query heads is a function of the shapes only."""
+The SSD scan's gradient: the plain chunked reverse pass
+(``ssd_backward_reference``, the algorithm of the backward kernel) and the
+port's autograd through ``ssd_scan`` against ``jax.vjp`` of the reference's
+token scan (``_ssd_bwd`` itself), all seven gradients, fp32 at atol / rtol
+1e-4, the reference's SSD tolerance (tests/test_kernels.py), at that test's
+shapes, at ragged S (100 and 200: a padded last chunk), at S = 1, with and
+without an initial state.
+Also: a CUDA-routed decode attention raises under grad (the reference has
+no VJP for it), and so does a CUDA-routed SSD scan asked for its final
+state (the reference differentiates y only); a CUDA-routed SSD scan under
+grad hands its very inputs and the cotangent to the backward kernel's entry
+point; the CUDA-routed gmm gradients hand the operands to the kernel as they
+lie (no transposed copy); the flash backward's split of the query heads is a
+function of the shapes only."""
 import inspect
+from functools import lru_cache
 
 import jax
 import jax.numpy as jnp
@@ -24,11 +35,13 @@ import pytest
 import torch
 
 from repro.kernels.flash_attention import ops as jfa_ops
+from repro.kernels.mamba_scan import ref as jms_ref
 from repro.kernels.moe_gmm import ops as jgmm_ops
 from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.mamba_scan import ops as ms_ops
+from repro_torch.kernels.mamba_scan import ref as ms_ref
 from repro_torch.kernels.moe_gmm import ops as gmm_ops
 
 
@@ -214,14 +227,155 @@ def test_cuda_decode_attention_raises_under_grad(monkeypatch):
         da_ops.decode_attention(q, kc, vc, lens)
 
 
-def test_cuda_ssd_scan_raises_under_grad(monkeypatch):
+def _ssd_small(requires_grad=False):
     Bsz, S, H, P, N = 1, 8, 2, 8, 16
-    x = torch.randn(Bsz, S, H, P, requires_grad=True)
+    x = torch.randn(Bsz, S, H, P, requires_grad=requires_grad)
     dt = torch.rand(Bsz, S, H) * 0.1
     A, D = -torch.rand(H) - 0.5, torch.randn(H)
     Bm, Cm = torch.randn(Bsz, S, N), torch.randn(Bsz, S, N)
-    y = ms_ops.ssd_scan(x, dt, A, Bm, Cm, D)                 # the plain version
+    return x, dt, A, Bm, Cm, D
+
+
+def test_cuda_ssd_scan_gradients_go_through_the_backward_kernel_entry(monkeypatch):
+    """On the card, under grad, the scan runs inside _SSDScan: its forward is
+    the kernel call (counted once) and its backward hands the saved inputs,
+    the very tensors (x a strided view, as the model's conv-buffer slice is),
+    and the cotangent to ssd_scan_bwd, whose gradients come back as they are."""
+    Bsz, S, H, P, N = 1, 8, 2, 8, 16
+    buf = torch.randn(Bsz, S, H * P + 2 * N)
+    x = buf[..., :H * P].view(Bsz, S, H, P).requires_grad_()
+    _, dt, A, Bm, Cm, D = _ssd_small()
+    for t in (dt, A, Bm, Cm, D):
+        t.requires_grad_()
+    init = torch.randn(Bsz, H, P, N, requires_grad=True)
+    y = ms_ops.ssd_scan(x, dt, A, Bm, Cm, D, init)           # the plain version
     assert torch.autograd.grad(y.sum(), x)[0].abs().sum() > 0
+    calls = []
+
+    def launch(*args):
+        calls.append(("fwd", args))
+        return torch.zeros(Bsz, S, H, P), torch.zeros(Bsz, H, P, N)
+
+    def bwd(*args):
+        calls.append(("bwd", args))
+        return tuple(torch.full_like(t, float(i + 1)) for i, t in enumerate(args[:7]))
+
     _cuda_route(monkeypatch, ms_ops)
-    with pytest.raises(NotImplementedError, match="backward"):
-        ms_ops.ssd_scan(x, dt, A, Bm, Cm, D)
+    monkeypatch.setattr(ms_ops, "_launch", launch)
+    monkeypatch.setattr(ms_ops, "ssd_scan_bwd", bwd)
+    inputs = (x, dt, A, Bm, Cm, D, init)
+    y = ms_ops.ssd_scan(*inputs)
+    dy = torch.randn(Bsz, S, H, P)
+    grads = torch.autograd.grad(y, inputs, dy)
+    (kind, fargs), (kind2, bargs) = calls
+    assert kind == "fwd" and kind2 == "bwd"
+    assert all(a is b for a, b in zip(fargs, inputs))
+    assert all(a is b for a, b in zip(bargs[:7], inputs)) and torch.equal(bargs[7], dy)
+    for i, g in enumerate(grads):
+        assert torch.equal(g, torch.full_like(inputs[i], float(i + 1)))
+
+
+def test_cuda_ssd_scan_with_state_raises_under_grad(monkeypatch):
+    """Only y is differentiable, as in the JAX package (its with_state path
+    takes the kernel that has no VJP): the card refuses a final state under
+    grad, and still gives it without."""
+    x, dt, A, Bm, Cm, D = _ssd_small(requires_grad=True)
+    _, st = ms_ops.ssd_scan(x, dt, A, Bm, Cm, D, with_state=True)   # the plain version
+    assert torch.autograd.grad(st.sum(), x)[0].abs().sum() > 0
+    _cuda_route(monkeypatch, ms_ops)
+    monkeypatch.setattr(ms_ops, "_launch", lambda *a: (torch.zeros_like(x), torch.zeros(1)))
+    with pytest.raises(NotImplementedError, match="differentiable"):
+        ms_ops.ssd_scan(x, dt, A, Bm, Cm, D, with_state=True)
+    with torch.no_grad():
+        assert ms_ops.ssd_scan(x, dt, A, Bm, Cm, D, with_state=True)[0].shape == x.shape
+
+
+# (B, S, H, P, N): tests/test_kernels.py's SSD sweep, ragged S (a padded last
+# chunk: 100 = 64 + 36, 200 = 3 x 64 + 8) and one token
+SSD_BWD_CASES = [(1, 64, 2, 16, 16), (2, 128, 3, 16, 32), (1, 128, 1, 64, 64),
+                 (2, 100, 2, 8, 16), (2, 200, 2, 8, 16), (2, 1, 2, 8, 16)]
+SSD_BWD_NAMES = ("dx", "ddt", "dA", "dB", "dC", "dD", "dinit")
+
+
+@lru_cache(None)
+def _ssd_bwd_case(B, S, H, P, N, init):
+    """numpy inputs (the reference's SSD sweep distributions), a cotangent,
+    and jax.vjp of the token scan's y at them (dinit None without init)."""
+    rng = np.random.default_rng(hash((B, S, H, P, N, init)) % 2**31)
+    f = np.float32
+    args = (rng.normal(size=(B, S, H, P)).astype(f), rng.uniform(0.001, 0.1, (B, S, H)).astype(f),
+            -rng.uniform(0.5, 2.0, (H,)).astype(f), rng.normal(size=(B, S, N)).astype(f),
+            rng.normal(size=(B, S, N)).astype(f), rng.normal(size=(H,)).astype(f),
+            rng.normal(size=(B, H, P, N)).astype(f) if init else None)
+    dy = rng.normal(size=(B, S, H, P)).astype(f)
+    _, vjp = jax.vjp(lambda *a: jms_ref.ssd_reference(*a)[0], *args)
+    want = tuple(None if g is None else np.asarray(g) for g in vjp(jnp.asarray(dy)))
+    return args, dy, want
+
+
+def _check_ssd_grads(got, want):
+    for name, g, w in zip(SSD_BWD_NAMES, got, want):
+        if w is None:
+            continue
+        assert g.dtype == torch.float32, name
+        np.testing.assert_allclose(g.detach().numpy(), w, atol=1e-4, rtol=1e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("init", [False, True])
+@pytest.mark.parametrize("B,S,H,P,N", SSD_BWD_CASES)
+def test_ssd_backward_reference_matches_jax_vjp(B, S, H, P, N, init):
+    """The plain chunked reverse pass, the algorithm the backward kernel
+    runs, against the reference's custom VJP rule (jax.vjp of the scan)."""
+    args, dy, want = _ssd_bwd_case(B, S, H, P, N, init)
+    targs = [None if a is None else torch.from_numpy(a) for a in args]
+    got = ms_ref.ssd_backward_reference(*targs, torch.from_numpy(dy))
+    assert len(got) == 7 and got[6].shape == (B, H, P, N)
+    _check_ssd_grads(got, want)
+    # the entry point the card's Function calls takes the plain pass on the CPU
+    for a, b in zip(ms_ops.ssd_scan_bwd(*targs, torch.from_numpy(dy)), got):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("init", [False, True])
+@pytest.mark.parametrize("B,S,H,P,N", SSD_BWD_CASES)
+def test_ssd_scan_autograd_matches_jax_vjp(B, S, H, P, N, init):
+    """The port's CPU route (autograd through the plain chunked scan) against
+    the same VJP: what the hybrid family trains with on the CPU."""
+    args, dy, want = _ssd_bwd_case(B, S, H, P, N, init)
+    leaves = [None if a is None else torch.from_numpy(a).requires_grad_() for a in args]
+    y = ms_ops.ssd_scan(*leaves)
+    got = torch.autograd.grad(y, [t for t in leaves if t is not None], torch.from_numpy(dy))
+    _check_ssd_grads(got, want)
+
+
+@pytest.mark.parametrize("P,N,dtype", [(64, 64, torch.bfloat16), (16, 16, torch.bfloat16),
+                                         (64, 128, torch.bfloat16), (128, 64, torch.bfloat16),
+                                         (64, 64, torch.float32), (16, 16, torch.float32),
+                                         (32, 128, torch.float32)])
+def test_ssd_bwd_fits_a_block_at_the_models_shapes(P, N, dtype):
+    """The backward kernel keeps a head's state and its adjoint in one
+    block's shared memory (fp64 for fp32 inputs): zamba2-1.2b's (P = N = 64)
+    and its smoke config's heads fit in either dtype, and so do N = 128 at
+    P = 64 and P = 128 at N = 64 in bf16 and N = 128 at P = 32 in fp32."""
+    acc = 8 if dtype == torch.float32 else 4
+    assert ms_ops.state_dtype(dtype) == (torch.float64 if acc == 8 else torch.float32)
+    assert ms_ops.bwd_smem_bytes(P, N, dtype) <= ms_ops.BWD_SMEM_LIMIT
+    assert ms_ops.bwd_smem_bytes(P, N, dtype) == \
+        acc * (2 * P * (N + 4) + 2528) + 4 * (2 * 64 * (P + 4) + 2 * 64 * (N + 4) + 2 * 64 * 68 + 64)
+
+
+@pytest.mark.parametrize("P,N,dtype,need", [(128, 128, torch.bfloat16, 315520),
+                                            (64, 128, torch.float32, 292864)])
+def test_ssd_bwd_refuses_a_head_too_large_for_a_block(monkeypatch, P, N, dtype, need):
+    """Past 232,448 bytes the entry point raises before any launch (the
+    plain version on the CPU takes any head)."""
+    B, S, H = 1, 4, 1
+    x, dy = torch.randn(B, S, H, P).to(dtype), torch.randn(B, S, H, P).to(dtype)
+    dt, A, D = torch.rand(B, S, H) * 0.1, -torch.rand(H) - 0.5, torch.randn(H)
+    Bm, Cm = torch.randn(B, S, N).to(dtype), torch.randn(B, S, N).to(dtype)
+    assert ms_ops.ssd_scan_bwd(x, dt, A, Bm, Cm, D, None, dy)[0].shape == x.shape
+    assert ms_ops.bwd_smem_bytes(P, N, dtype) == need
+    _cuda_route(monkeypatch, ms_ops)
+    monkeypatch.setattr(ms_ops, "_bwd_lib", lambda: pytest.fail("launched"))
+    with pytest.raises(ValueError, match="shared memory"):
+        ms_ops.ssd_scan_bwd(x, dt, A, Bm, Cm, D, None, dy)
