@@ -8,9 +8,9 @@ Phases; any failure exits non-zero and no phase's failure is caught:
      src/repro_torch/csrc (one nvcc per source, all at once), print each
      kernel's registers and spills, and check the SASS of the bf16 kernels:
      HMMA and LDGSTS in flash (forward and backward), the grouped matmul and
-     the SSD scan, HGMMA and UTMALDG in the grouped GEMM (the gmm's
-     gradients and its forward at training capacities), LDGSTS in split-KV
-     decode.
+     the SSD scan, and in the SSD scan backward's states and chunk kernels,
+     HGMMA and UTMALDG in the grouped GEMM (the gmm's gradients and its
+     forward at training capacities), LDGSTS in split-KV decode.
   2. kernels: each CUDA kernel against its plain PyTorch version on the
      card, at the served models' shapes and ragged ones (attention fp32
      2e-5, bf16 2e-2; grouped matmul fp32 1e-4, bf16 atol 1e-1 / rtol 5e-2;
@@ -52,14 +52,20 @@ Phases; any failure exits non-zero and no phase's failure is caught:
      also beside the earlier path (a contiguous transposed copy of w or x,
      then the forward kernel: before_ms) and that copy alone (copy_ms).
      The SSD scan's backward (dx, ddt, dA, dB, dC, dD, dinit) at the
-     forward's cases and zamba2-1.2b's conv-buffer layout: fp32 within 1e-4
-     of the plain backward in fp64 (the fp32 plain backward's own share of
-     that tolerance printed beside), bf16 within 2e-2 of the plain backward
-     on the same inputs and its dx, dB and dC rows (the rest in norm) within
-     1e-2 of the plain backward in fp32; two calls bit for bit; through
-     autograd and under a checkpoint the kernel's, bit for bit, and near the
-     plain version's autograd. Timed at zamba2's train shape (B=4, S=512,
-     bf16) beside the plain backward (no single PyTorch call computes it).
+     forward's cases, zamba2-1.2b's conv-buffer layout, and heads the two-sweep
+     kernel refused (P=64, N=128 in fp32; P=N=128 and P=200, N=64 in bf16;
+     S = 63, 200, 1000): fp32 within 1e-4 of the plain backward in fp64 (the
+     fp32 plain backward's own share of that tolerance printed beside),
+     bf16 within 2e-2 of the plain backward on the same inputs and its dx,
+     dB and dC rows (the rest in norm) within 1e-2 of the plain backward in
+     fp32; two calls bit for bit; through autograd and under a checkpoint
+     the kernel's, bit for bit, and near the plain version's autograd.
+     Timed at zamba2's train shape (B=4, S=512, bf16) beside the two-sweep
+     kernel on the same inputs (before_ms, through the C entry point, never
+     counted as a launch), the plain backward (no single PyTorch call
+     computes it) and the bound, with the workspace bytes of both, the
+     chunked kernels' registers and spills and a profile of its three
+     launches.
   3. parity: qwen2-1.5b, granite-moe-3b-a800m, qwen2-vl-2b (256 vision
      tokens) and glm4-9b at full width cut to 2 layers, whisper-base cut
      to 2 encoder and 2 decoder layers over its 1500 frames, and
@@ -115,7 +121,8 @@ Phases; any failure exits non-zero and no phase's failure is caught:
      step of each.
 The line before the last is a JSON object with every kernel's numbers
 (before_ms: the earlier kernel on the same inputs: the CUDA-core kernel of
-the forward kernels, the earlier copy-then-gmm path of dx and dw): attention and
+the forward kernels, the earlier copy-then-gmm path of dx and dw, the two-sweep
+kernel of the SSD scan's backward): attention and
 grouped matmul at granite-moe-3b-a800m's shapes with their launches from
 granite's poisson5 run, the SSD scan at zamba2-1.2b's prefill shape with its
 launches from zamba2's poisson5 run, the flash backward and the grouped
@@ -289,6 +296,8 @@ SASS_CHECKS = [("moe_gmm", "gmm_mma_kernel", ("HMMA", "LDGSTS")),
                ("flash_attention", "flash_mma_kernel", ("HMMA", "LDGSTS")),
                ("flash_attention_bwd", "mma_kernel", ("HMMA", "LDGSTS")),
                ("mamba_scan", "ssd_mma_kernel", ("HMMA", "LDGSTS")),
+               ("mamba_scan_bwd", "ssd_bwd_states_mma", ("HMMA", "LDGSTS")),
+               ("mamba_scan_bwd", "ssd_bwd_chunk_mma", ("HMMA", "LDGSTS")),
                ("decode_attention", "decode_split_kernel", ("LDGSTS",))]
 
 
@@ -1233,9 +1242,11 @@ def _ssd_bwd_kernel(gen, flush):
     """The SSD scan's backward kernel (B7) against its plain version: the
     forward's cases (the test sweep's (H, P, N), P = 24 and 12, which 16 does
     not divide, every N of STATE_DIMS, zamba2's (64, 64, 64); S from 1 to
-    1000, ragged tails; B 1, and 3 with a nonzero initial state) and
-    zamba2's layout (x, B and C column slices of one conv buffer, B 1 and
-    2); fp32 and bf16, every case twice, bit for bit. Then through autograd
+    1000, ragged tails; B 1, and 3 with a nonzero initial state), zamba2's
+    layout (x, B and C column slices of one conv buffer, B 1 and 2) and
+    heads the two-sweep kernel refused (fp32 P = 64, N = 128; bf16 P = N = 128
+    and P = 200, N = 64; S 63, 200, 1000, the 200 at B = 2 with an initial
+    state); fp32 and bf16, every case twice, bit for bit. Then through autograd
     and under a checkpoint: an ssd_scan call under grad whose backward goes
     through the kernel (counted), bit for bit the kernel's, and held to the
     plain version's autograd (fp64 for the fp32 kernel, at its tolerance;
@@ -1262,6 +1273,11 @@ def _ssd_bwd_kernel(gen, flush):
                  for S in (1, 8, 63, 64, 100, 128, 200, 1000) for B in (1, 3)]
         cases += [(f"strided B={B} S={S}", conv_slices(B, S, 64, 64, 64, dtype))
                   for B, S in ((1, 63), (1, 200), (2, 200))]
+        big = ((64, 128),) if dtype == torch.float32 else ((128, 128), (200, 64))
+        cases += [(f"B={B} S={S} H=2 P={P} N={N}", _ssd_inputs(gen, B, S, 2, P, N, dtype,
+                                                               init=B == 2))
+                  for P, N in big for S, B in ((63, 1), (200, 2), (1000, 1))]
+        n_mma = sum(ms_ops.bwd_takes_mma(a[0], a[3], a[4], a[0]) for _, a in cases)
         err = share = own = 0.0
         for what, args in cases:
             dy = _randn(gen, *args[0].shape, dtype=dtype)
@@ -1278,9 +1294,10 @@ def _ssd_bwd_kernel(gen, flush):
                   f"in fp64, max abs err {err:.3e} ({share:.3f} of the tolerance at most; the "
                   f"plain backward in fp32 reaches {own:.3f} of it); two calls bit for bit")
         else:
-            print(f"[kernels] ssd_scan_bwd bfloat16: {len(cases)} cases match the plain backward "
-                  f"on the same inputs, max abs err {err:.3e}; dx, dB, dC rows (the rest in "
-                  f"norm) within {share:.3e} of the fp32 plain backward; two calls bit for bit")
+            print(f"[kernels] ssd_scan_bwd bfloat16: {len(cases)} cases ({n_mma} on the tensor-core "
+                  f"kernels) match the plain backward on the same inputs, max abs err {err:.3e}; "
+                  f"dx, dB, dC rows (the rest in norm) within {share:.3e} of the fp32 plain "
+                  f"backward; two calls bit for bit")
 
     # through autograd and a checkpoint: the Function's backward is the kernel
     for dtype in (torch.float32, torch.bfloat16):
@@ -1317,24 +1334,62 @@ def _ssd_bwd_kernel(gen, flush):
     B, S = TRAIN_SHAPES[SSD_ARCH]
     args = conv_slices(B, S, H, P, N, torch.bfloat16)
     dy = _randn(gen, B, S, H, P, dtype=torch.bfloat16)
+    assert ms_ops.bwd_takes_mma(args[0], args[3], args[4], dy), "the train shape's route"
     nbytes, flops = _ssd_bwd_cost(B, S, H, P, N, 2, False)
     bound, by = _bound(nbytes, flops)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = ms_ops.bwd_plan(B, S, H, P, N, torch.bfloat16, "mma", sms)
+    before = ms_ops.bwd_plan(B, S, H, P, N, torch.bfloat16, "sweep", sms)
     call = lambda: ms_ops.ssd_scan_bwd(*args, dy)  # noqa: E731
+    old = lambda: ms_ops._bwd_launch(before, *args, dy)  # noqa: E731
+    assert all(bool(torch.isfinite(g).all()) for g in old()), "ssd bwd before: not finite"
+    regs = _ptxas_lines("mamba_scan_bwd", ("ssd_bwd_states_mma<64>", "ssd_bwd_chunk_mma<64>",
+                                           "ssd_bwd_kernel<__nv_bfloat16>"))
     row = {"name": "ssd_scan_bwd", "route": "cuda",
            "source": "src/repro_torch/csrc/mamba_scan_bwd.cu",
            "replaces": "src/repro/kernels/mamba_scan/ops.py:25",
            "max_abs_err": max(summary.values()),
            "ms": _time_ms(call, flush),
+           "before_ms": _time_ms(old, flush),
            "plain_ms": _time_ms(lambda: ms_ref.ssd_backward_reference(*args, dy), flush, reps=10),
            "bound_ms": bound, "bound_by": by, "library_ms": None, "host_us": _host_us(call),
+           "workspace_bytes": plan.workspace_bytes, "workspace_traffic": plan.workspace_traffic,
+           "before_workspace_traffic": before.workspace_traffic, "registers": regs,
+           "plan": f"{plan.heads_per_group} heads a group, chunk grid {plan.chunk_grid}, "
+                   f"states grid {plan.states_grid}, {plan.blocks_per_sm} chunk blocks an SM",
            "shape": f"B={B} S={S} H={H} P={P} N={N} bf16 x/B/C/dy"}
     print(f"[kernels] ssd_scan_bwd at {SSD_ARCH}'s train shape {row['shape']} (x/B/C slices of "
-          f"the conv buffer): kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, no "
-          f"library call, bound {bound:.6f} ms ({by}, bf16 rate: {nbytes / 1e6:.1f} MB, "
-          f"{flops / 1e9:.2f} GFLOP; the bytes alone {nbytes / HBM_BYTES_PER_S * 1e3:.6f} ms, "
-          f"the operations {flops / BF16_FLOP_PER_S * 1e3:.6f} ms); "
-          f"host enqueue {row['host_us']:.1f} us/call")
+          f"the conv buffer): kernel {row['ms']:.4f} ms (before: {row['before_ms']:.4f}), plain "
+          f"{row['plain_ms']:.4f} ms, no library call, bound {bound:.6f} ms ({by}, bf16 rate: "
+          f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP; the bytes alone "
+          f"{nbytes / HBM_BYTES_PER_S * 1e3:.6f} ms, the operations "
+          f"{flops / BF16_FLOP_PER_S * 1e3:.6f} ms); host enqueue {row['host_us']:.1f} us/call")
+    print(f"[kernels] ssd_scan_bwd plan: {row['plan']}; workspace {plan.workspace_bytes / 1e6:.1f} "
+          f"MB allocated (S0 and G {plan.state_bytes / 1e6:.1f}, of them "
+          f"{plan.state_traffic / 1e6:.1f} written; dB / dC partials {plan.dbc_bytes / 1e6:.1f}; "
+          f"dA / dD partials {plan.ad_bytes / 1e6:.3f}), {plan.workspace_traffic / 1e6:.1f} MB "
+          f"written and read back (before: {before.workspace_traffic / 1e6:.1f} MB)")
+    for line in regs:
+        print(f"[kernels] ssd_scan_bwd {line}")
+    _profiled("ssd_scan_bwd at the train shape, by kernel", call, 5)
     return row
+
+
+def _ptxas_lines(lib, kernels):
+    """ptxas's registers and spills of the named kernels in ``lib``'s build
+    log: one line each, "kernel: N registers, S bytes spill stores"."""
+    from repro_torch.kernels import build
+
+    out, fn, spill = [], None, ""
+    for line in build.build_log(lib).splitlines():
+        if "Function properties for" in line:
+            fn = _demangle(line.split("Function properties for")[1].strip())
+        elif fn in kernels and "spill stores" in line:
+            spill = line.strip()
+        elif fn in kernels and "registers" in line:
+            regs = line.split("Used")[1].split(",")[0].strip()
+            out.append(f"{fn}: {regs}, {spill}")
+    return out
 
 
 # ---------------------------------------------------------------- phase 3
@@ -1770,8 +1825,11 @@ def phase_train(arch, profile=True):
             prof["wall_ms"] = 1e3 * (now - last["t"])
             prof["close_s"] = time.perf_counter() - now
         if profile and i == TRAIN_STEPS - 2:
+            # device activity only: the report reads device events alone, and
+            # recording the host's ops too made the xLSTM step's (186,739
+            # device ops) take about 100 s to report
             from torch.profiler import ProfilerActivity, profile as torch_profile
-            prof["window"] = torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            prof["window"] = torch_profile(activities=[ProfilerActivity.CUDA])
             prof["window"].__enter__()
         torch.cuda.synchronize()
         last["t"], last["launches"] = time.perf_counter(), launches

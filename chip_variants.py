@@ -3,6 +3,7 @@
 
     python3 chip_variants.py        # from the root of a checkout, on the card
     python3 chip_variants.py decode_attention mamba_scan    # only these sources
+    python3 chip_variants.py mamba_scan_bwd                 # the SSD scan's backward
 
 The grouped matmul (csrc/moe_gmm.cu), flash prefill (csrc/flash_attention.cu),
 the flash backward (csrc/flash_attention_bwd.cu), split-KV decode
@@ -17,8 +18,13 @@ unroll, and besides the host's split rule, fixed splits of the query
 heads, with a per-kernel profile; decode: keys per tile,
 K/V ring depth, and besides the host's split rule, fixed split counts,
 whisper-base's cross decode over 1500 frames among them; SSD: columns of P
-per block) into build/repro_torch/variants/, printing the registers and
-spills of each variant's tensor-core kernels. Each variant is timed with
+per block; the SSD scan's backward (csrc/mamba_scan_bwd.cu): rows of P per
+block of its states kernel and S0 / G taken as a bf16 rounding alone instead
+of rounding and remainder, and besides, on the default build, heads per
+chunk block other than the launch plan's, the two-sweep kernel and the
+chunked kernels on the CUDA cores, each with its workspace bytes) into
+build/repro_torch/variants/, printing the registers and spills of each
+variant's tensor-core kernels. Each variant is timed with
 chip_smoke.py's _time_ms (L2 cold and clean, host enqueue hidden) at the
 served models' shapes, bf16, beside torch.bmm /
 scaled_dot_product_attention and two floors of the measurement itself: one
@@ -58,6 +64,9 @@ VARIANTS = {
                          "kt128r2": {"kDT = 64;": "kDT = 128;"}},
     "mamba_scan": {"pw16": {}, "pw32": {"kPW = 16;": "kPW = 32;"},
                    "pw64": {"kPW = 16;": "kPW = 64;"}},
+    "mamba_scan_bwd": {"sp64": {}, "sp32": {"kSP = 64;": "kSP = 32;"},
+                       "sp16": {"kSP = 64;": "kSP = 16;"},
+                       "bf16state": {"kStateLo = true;": "kStateLo = false;"}},
 }
 GMM_SHAPES = [(40, c, d, f) for c in (4, 16, 64) for d, f in ((1536, 512), (512, 1536))]
 GMM_MMA_VARIANTS = ("ft64", "ft128", "ring8")     # the forward kernel's; the rest the GEMM's
@@ -84,6 +93,11 @@ DECODE_SHAPES = [(8, 24, 8, 64, 256, "serve", DECODE_FIXED_SPLITS)] + \
     [(B, 8, 8, 64, 1500, "full", WHISPER_CROSS_SPLITS) for B in (1, 8)] + \
     [(2, 12, 2, 128, 304, "full", (1, 3, 5))]
 SSD_S = (64, 256, 1000)        # zamba2's prefill chunk, then longer prompts
+# the SSD scan's backward: zamba2-1.2b's train shape (B = 4, S = 512, H = P =
+# N = 64; x, B and C slices of one conv buffer), and heads per chunk block
+# timed beside the launch plan's
+SSD_BWD_SHAPE = (4, 512, 64, 64, 64)
+SSD_BWD_GROUPS = (2, 4, 8, 16, 32)
 
 
 def _decode_variants(cs, libs, flush, gen, stream):
@@ -161,6 +175,78 @@ def _ssd_variants(cs, libs, flush, gen, stream):
         print(f"[variants] ssd B=1 S={S} H={H} P={P} N={N} us: {', '.join(row)}", flush=True)
 
 
+def _ssd_bwd_variants(cs, libs, flush, gen, stream):
+    """The SSD scan's backward at zamba2-1.2b's train shape, bf16: every
+    built variant at the launch plan's heads per group, the default build
+    at other group sizes, on the CUDA cores, and the two-sweep kernel; each
+    first held to the plain backward (bf16 tolerance, and dx, dB, dC rows
+    within SSD_ROW_REL of the fp32 plain backward), then timed beside its
+    workspace bytes (written and read back)."""
+    import contextlib
+    import ctypes
+    from repro_torch.kernels.mamba_scan import ops as ms_ops
+    from repro_torch.kernels.mamba_scan import ref as ms_ref
+
+    B, S, H, P, N = SSD_BWD_SHAPE
+    buf = cs._randn(gen, B, S, H * P + 2 * N, dtype=torch.bfloat16)
+    _, dt, A, _, _, D, _ = cs._ssd_inputs(gen, B, S, H, P, N, torch.bfloat16)
+    args = (buf[..., :H * P].view(B, S, H, P), dt, A, buf[..., H * P:H * P + N],
+            buf[..., H * P + N:], D, None)
+    dy = cs._randn(gen, B, S, H, P, dtype=torch.bfloat16)
+    same = ms_ref.ssd_backward_reference(*args, dy)
+    x, _, _, Bm, Cm, _, _ = args
+    exact = ms_ref.ssd_backward_reference(x.float(), dt, A, Bm.float(), Cm.float(), D, None,
+                                          dy.float())
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    @contextlib.contextmanager
+    def library(fn):
+        fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 5 + [ctypes.c_int64] * 8 + \
+            [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        saved = ms_ops._bwd_lib
+        ms_ops._bwd_lib = lambda: fn
+        try:
+            yield
+        finally:
+            ms_ops._bwd_lib = saved
+
+    def timed(name, plan, traffic=None):
+        call = lambda: ms_ops._bwd_launch(plan, *args, dy)  # noqa: E731
+        got = call()
+        torch.cuda.synchronize()
+        rel = 0.0
+        for what, g, w, e in zip(cs.SSD_BWD_NAMES, got, same, exact):
+            cs._check(f"ssd bwd {name} {what}", g, w, **cs.SSD_BWD_TOL[torch.bfloat16])
+            r = cs._row_rel(g, e) if what in ("dx", "dB", "dC") else cs._rel(g, e)
+            assert r <= cs.SSD_ROW_REL, f"ssd bwd {name} {what}: {r:.3e} of the norm"
+            rel = max(rel, r)
+        mb = (plan.workspace_traffic if traffic is None else traffic) / 1e6
+        return f"{name} {1e3 * cs._time_ms(call, flush):.1f} (rows {rel:.2e}, workspace {mb:.1f} MB)"
+
+    row = []
+    for name in VARIANTS["mamba_scan_bwd"]:
+        plan = ms_ops.bwd_plan(B, S, H, P, N, torch.bfloat16, "mma", sms)
+        # a bf16 rounding alone writes and reads one plane of S0 and G, not two
+        traffic = plan.workspace_traffic - plan.state_traffic if name == "bf16state" else None
+        with library(libs[("mamba_scan_bwd", name)].repro_ssd_scan_bwd):
+            try:
+                row.append(timed(f"{name}/hg{plan.heads_per_group}", plan, traffic))
+            except AssertionError as err:    # a variant that misses the check is a finding
+                row.append(f"{name} fails: {err}")
+            if name == "sp64":
+                for hg in SSD_BWD_GROUPS:
+                    if hg != plan.heads_per_group:
+                        row.append(timed(f"{name}/hg{hg}", ms_ops.bwd_plan(
+                            B, S, H, P, N, torch.bfloat16, "mma", sms, heads_per_group=hg)))
+                row.append(timed("cuda-cores", ms_ops.bwd_plan(B, S, H, P, N, torch.bfloat16,
+                                                               "fma", sms)))
+                row.append(timed("two-sweep", ms_ops.bwd_plan(B, S, H, P, N, torch.bfloat16,
+                                                         "sweep", sms)))
+    print(f"[variants] ssd bwd B={B} S={S} H={H} P={P} N={N} bf16 us: {', '.join(row)}",
+          flush=True)
+
+
 def _build(build, sources):
     """Every variant's library of ``sources``, built in parallel:
     {(source, variant): CDLL}."""
@@ -197,7 +283,7 @@ def _print_registers(key, log):
     for line in log.splitlines():
         if "Function properties for" in line:
             fn = cs._demangle(line.split("Function properties for")[1].strip())
-        elif fn and ("mma_kernel" in fn or "tiled_kernel" in fn) and \
+        elif fn and ("mma_kernel" in fn or "tiled_kernel" in fn or "_mma<" in fn) and \
                 ("registers" in line or "spill" in line):
             print(f"[variants] {key[0]}/{key[1]} {fn}: {line.split(':', 1)[-1].strip()}")
 
@@ -386,7 +472,7 @@ def main():
     print(f"[variants] one tiny launch: {1e3 * cs._time_ms(lambda: one.add_(1), flush):.1f} us")
     runs = {"moe_gmm": _gmm_variants, "flash_attention": _flash_variants,
             "flash_attention_bwd": _flash_bwd_variants, "decode_attention": _decode_variants,
-            "mamba_scan": _ssd_variants}
+            "mamba_scan": _ssd_variants, "mamba_scan_bwd": _ssd_bwd_variants}
     for src in sources:
         runs[src](cs, libs, flush, gen, stream)
     print("[variants] done")

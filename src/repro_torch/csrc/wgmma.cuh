@@ -54,6 +54,17 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 }
 
 // ---------------------------------------------------------------- TMA
+// `bytes` contiguous bytes (a multiple of 16; both addresses 16-byte
+// aligned) into shared memory; completion is reported to `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes),
+         "r"(smem_addr(bar))
+      : "memory");
+}
+
 // One box of a 3-D tensor map into shared memory; completion (its bytes)
 // is reported to `bar`. Coordinates are elements, innermost first; boxes
 // past the tensor's edge are zero-filled.

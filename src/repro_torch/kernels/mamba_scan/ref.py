@@ -165,6 +165,87 @@ def ssd_backward_reference(x, dt, A, Bmat, Cmat, D, init_state, dy, chunk: int =
             dC[:, :S].to(Cmat.dtype), dD, G)
 
 
+def ssd_backward_chunk_parallel(x, dt, A, Bmat, Cmat, D, init_state, dy, chunk: int = 64,
+                                heads_per_group: int = 1):
+    """The same VJP as ``ssd_backward_reference``, in the decomposition the
+    chunked backward kernels run (csrc/mamba_scan_bwd.cu, variants 1 and 2):
+    (a) each chunk's state increment sum_u w_u x_u B_u^T in parallel, then a
+    pass over the chunks forms each start state S0_c; (b) the adjoint's
+    increments sum_t e^{cum_t} dy_t C_t^T in parallel, then a reverse pass
+    forms G_c, the adjoint of chunk c's end state (dinit is the pass's
+    result after chunk 0); (c) every chunk at once, given S0_c and G_c: dx,
+    ddt, the per-(b, chunk, h) parts of dA and dD, and dB, dC summed over
+    groups of ``heads_per_group`` heads, then over the groups in order.
+    Returns (dx, ddt, dA, dB, dC, dD, dinit) as ``ssd_backward_reference``
+    does."""
+    Bsz, S, H, P = x.shape
+    N = Bmat.shape[-1]
+    nc = -(-S // chunk)
+    pad = nc * chunk - S
+    xf, dyf, dtf, Bf, Cf, Af, Df = _wide(x, x, dy, dt, Bmat, Cmat, A, D)
+    if pad:
+        xf, dyf, dtf, Bf, Cf = (torch.nn.functional.pad(a, (0, 0) * (a.dim() - 2) + (0, pad))
+                                for a in (xf, dyf, dtf, Bf, Cf))
+    # chunk axis second: x, dy (B,nc,T,H,P); dt (B,nc,T,H); B, C (B,nc,T,N)
+    xc, dyc = (a.reshape(Bsz, nc, chunk, H, P) for a in (xf, dyf))
+    dtc = dtf.reshape(Bsz, nc, chunk, H)
+    Bc, Cc = (a.reshape(Bsz, nc, chunk, N) for a in (Bf, Cf))
+    cum = torch.cumsum(dtc * Af, dim=2)                                   # (B,nc,T,H)
+    cT = cum[:, :, -1]                                                    # (B,nc,H)
+    ecum, erev = torch.exp(cum), torch.exp(cT[:, :, None] - cum)
+    w = erev * dtc
+    decay = torch.exp(cT)[..., None, None]                                # (B,nc,H,1,1)
+
+    # (a) start states: S0_{c+1} = e^{cum_T} S0_c + sum_u w_u x_u B_u^T
+    inc = torch.einsum("bcth,bcthp,bctn->bchpn", w, xc, Bc)
+    starts = [_init(x, N, init_state)]
+    for c in range(nc - 1):
+        starts.append(decay[:, c] * starts[-1] + inc[:, c])
+    S0 = torch.stack(starts, 1)                                           # (B,nc,H,P,N)
+    # (b) adjoints: G_{c-1} = e^{cum_T} G_c + sum_t e^{cum_t} dy_t C_t^T, G_{nc-1} = 0
+    adj = torch.einsum("bcth,bcthp,bctn->bchpn", ecum, dyc, Cc)
+    ends = [torch.zeros_like(starts[0])]
+    for c in range(nc - 1, 0, -1):
+        ends.insert(0, decay[:, c] * ends[0] + adj[:, c])
+    G = torch.stack(ends, 1)                                              # (B,nc,H,P,N)
+    dinit = decay[:, 0] * G[:, 0] + adj[:, 0]
+
+    # (c) every chunk at once
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=x.device))
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]                  # (B,nc,T,U,H)
+    dec = torch.exp(torch.where(tri[None, None, :, :, None], diff, 0.0)) * \
+        tri[None, None, :, :, None]
+    cb = torch.einsum("bctn,bcun->bctu", Cc, Bc)[..., None]               # (B,nc,T,U,1)
+    dxy = torch.einsum("bcthp,bcuhp->bctuh", dyc, xc)
+    K = dxy * cb * dec
+    M = cb * dtc[:, :, None] * dec
+    W = dxy * dtc[:, :, None] * dec
+    Q = K * dtc[:, :, None]
+    GB = torch.einsum("bchpn,bcun->bcuhp", G, Bc)                         # G B_u
+    xGB = (xc * GB).sum(-1)                                               # (B,nc,T,H)
+    inter = ecum[..., None] * torch.einsum("bchpn,bcthp->bcthn", S0, dyc)
+    dx = torch.einsum("bctuh,bcthp->bcuhp", M, dyc) + Df[:, None] * dyc + w[..., None] * GB
+    dCh = torch.einsum("bctuh,bcun->bcthn", W, Bc) + inter               # per head
+    dBh = torch.einsum("bctuh,bctn->bcuhn", W, Cc) + \
+        w[..., None] * torch.einsum("bcthp,bchpn->bcthn", xc, G)
+    dcum = Q.sum(3) - Q.sum(2) + torch.einsum("bcthn,bctn->bcth", inter, Cc) - w * xGB
+    dcum[:, :, -1] += torch.exp(cT) * (G * S0).sum((-2, -1)) + (w * xGB).sum(2)
+    r = dcum.flip(2).cumsum(2).flip(2)                                    # sum_{t'>=t}
+    ddt = K.sum(2) + erev * xGB + Af * r
+    dA_part = (dtc * r).sum(2)                                            # (B,nc,H)
+    dD_part = torch.einsum("bcthp,bcthp->bch", dyc, xc)
+    groups = -(-H // heads_per_group)
+    dB = sum(dBh[:, :, :, g * heads_per_group:(g + 1) * heads_per_group].sum(3)
+             for g in range(groups))
+    dC = sum(dCh[:, :, :, g * heads_per_group:(g + 1) * heads_per_group].sum(3)
+             for g in range(groups))
+    dA = dA_part.reshape(-1, H).sum(0)
+    dD = dD_part.reshape(-1, H).sum(0)
+    flat = lambda a: a.reshape(Bsz, nc * chunk, *a.shape[3:])[:, :S]    # noqa: E731
+    return (flat(dx).to(x.dtype), flat(ddt), dA, flat(dB).to(Bmat.dtype),
+            flat(dC).to(Cmat.dtype), dD, dinit)
+
+
 def ssd_decode_step(state, xt, dtt, A, Bt, Ct, D):
     """Single-token recurrence. state (B,H,P,N) fp32; xt (B,H,P); dtt (B,H);
     Bt/Ct (B,N). Returns (y (B,H,P) in xt's dtype, new_state fp32)."""

@@ -353,29 +353,64 @@ def test_ssd_scan_autograd_matches_jax_vjp(B, S, H, P, N, init):
                                          (64, 64, torch.float32), (16, 16, torch.float32),
                                          (32, 128, torch.float32)])
 def test_ssd_bwd_fits_a_block_at_the_models_shapes(P, N, dtype):
-    """The backward kernel keeps a head's state and its adjoint in one
-    block's shared memory (fp64 for fp32 inputs): zamba2-1.2b's (P = N = 64)
-    and its smoke config's heads fit in either dtype, and so do N = 128 at
-    P = 64 and P = 128 at N = 64 in bf16 and N = 128 at P = 32 in fp32."""
+    """The chunked backward's blocks hold a slice of a head, never a whole
+    state: at zamba2-1.2b's (P = N = 64) and its smoke config's heads, N =
+    128 at P = 64, P = 128 at N = 64 and N = 128 at P = 32, the chunk
+    kernel's block fits an SM in either dtype, its states kernel takes P in
+    slices of STATE_ROWS rows, and the CUDA-core route keeps the state in
+    fp64 for fp32 inputs."""
     acc = 8 if dtype == torch.float32 else 4
     assert ms_ops.state_dtype(dtype) == (torch.float64 if acc == 8 else torch.float32)
-    assert ms_ops.bwd_smem_bytes(P, N, dtype) <= ms_ops.BWD_SMEM_LIMIT
-    assert ms_ops.bwd_smem_bytes(P, N, dtype) == \
-        acc * (2 * P * (N + 4) + 2528) + 4 * (2 * 64 * (P + 4) + 2 * 64 * (N + 4) + 2 * 64 * 68 + 64)
+    variant = "mma" if dtype == torch.bfloat16 else "fma"
+    plan = ms_ops.bwd_plan(2, 200, 3, P, N, dtype, variant, 132)
+    assert ms_ops.chunk_smem_bytes(N, variant, dtype) <= 232448 and plan.blocks_per_sm >= 1
+    rows = ms_ops.STATE_ROWS[variant]
+    assert plan.states_grid == (2 * -(-(-(-P // 64) * 64 if variant == "mma" else P) // rows),
+                                3, 2)
+    assert plan.state_bytes == 2 * 2 * 3 * 4 * (-(-P // 64) * 64 if variant == "mma" else P) * \
+        N * (4 if variant == "mma" else acc)
 
 
-@pytest.mark.parametrize("P,N,dtype,need", [(128, 128, torch.bfloat16, 315520),
-                                            (64, 128, torch.float32, 292864)])
-def test_ssd_bwd_refuses_a_head_too_large_for_a_block(monkeypatch, P, N, dtype, need):
-    """Past 232,448 bytes the entry point raises before any launch (the
-    plain version on the CPU takes any head)."""
-    B, S, H = 1, 4, 1
+def _bwd_stub(monkeypatch):
+    """Send CPU tensors down ssd_scan_bwd's CUDA branch with the C entry
+    point stubbed: returns the list its calls are recorded in."""
+    calls = []
+
+    def lib(*args):
+        calls.append(args)
+        return 0
+
+    _cuda_route(monkeypatch, ms_ops)
+    monkeypatch.setattr(ms_ops, "_bwd_lib", lambda: lib)
+    monkeypatch.setattr(ms_ops, "_sm_count", lambda index: 132)
+    monkeypatch.setattr(ms_ops, "_stream", lambda dev: 0)
+    return calls
+
+
+@pytest.mark.parametrize("P,N,dtype,variant", [(128, 128, torch.bfloat16, "mma"),
+                                               (64, 128, torch.float32, "fma"),
+                                               (200, 64, torch.bfloat16, "mma"),
+                                               (300, 128, torch.float32, "fma"),
+                                               (12, 16, torch.bfloat16, "fma")])
+def test_ssd_bwd_takes_a_head_the_first_kernel_refused(monkeypatch, P, N, dtype, variant):
+    """Heads the two-sweep kernel refused before launch (P = N = 128 in bf16,
+    P = 64 at N = 128 in fp32) and larger ones route to the kernel through
+    the C entry point (stubbed here) with the plan's variant, group size and
+    workspaces, and do not raise; bf16 with P not a multiple of 8 takes the
+    CUDA cores."""
+    B, S, H = 1, 70, 2
     x, dy = torch.randn(B, S, H, P).to(dtype), torch.randn(B, S, H, P).to(dtype)
     dt, A, D = torch.rand(B, S, H) * 0.1, -torch.rand(H) - 0.5, torch.randn(H)
     Bm, Cm = torch.randn(B, S, N).to(dtype), torch.randn(B, S, N).to(dtype)
     assert ms_ops.ssd_scan_bwd(x, dt, A, Bm, Cm, D, None, dy)[0].shape == x.shape
-    assert ms_ops.bwd_smem_bytes(P, N, dtype) == need
-    _cuda_route(monkeypatch, ms_ops)
-    monkeypatch.setattr(ms_ops, "_bwd_lib", lambda: pytest.fail("launched"))
-    with pytest.raises(ValueError, match="shared memory"):
-        ms_ops.ssd_scan_bwd(x, dt, A, Bm, Cm, D, None, dy)
+    calls = _bwd_stub(monkeypatch)
+    before = ms_ops.ssd_scan_bwd.launches
+    grads = ms_ops.ssd_scan_bwd(x, dt, A, Bm, Cm, D, None, dy)
+    assert ms_ops.ssd_scan_bwd.launches == before + 1 and len(calls) == 1
+    assert [tuple(g.shape) for g in grads] == [(B, S, H, P), (B, S, H), (H,), (B, S, N),
+                                                (B, S, N), (H,), (B, H, P, N)]
+    args = calls[0]
+    plan = ms_ops.bwd_plan(B, S, H, P, N, dtype, variant, 132)
+    assert args[18:23] == (B, S, H, P, N)
+    assert args[31:34] == (plan.heads_per_group, 1 if dtype == torch.bfloat16 else 0,
+                           ms_ops.BWD_VARIANTS[variant])
