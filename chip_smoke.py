@@ -18,8 +18,10 @@ Phases; any failure exits non-zero and no phase's failure is caught:
      besides, every bf16 flash row and every bf16 SSD row of y and of the
      final state within 1e-2 of its norm against the plain version in
      fp32). Flash also at glm4-9b's heads (16 query heads per KV head,
-     D=128) and at whisper-base's (H=KH=8, D=64) without causality at
-     Sq = Sk = 1500 and Sq = 1, 16, 64 against Sk = 1500. Decode's split
+     D=128), at minicpm-2b's (MHA: H=KH=36, D=64) and mistral-nemo-12b's
+     (H=32, KH=8, D=128), and at whisper-base's (H=KH=8, D=64) without
+     causality at Sq = Sk = 1500 and Sq = 1, 16, 64 against Sk = 1500;
+     decode also at the latter two's heads. Decode's split
      path is checked at lengths 1, 63, 64, 65, on, beside and across
      (window 64) a split's boundary, at and past Smax, for Smax 256, 1500
      and 4096 and B 1 and 8, glm4-9b's heads among them, and at
@@ -88,9 +90,11 @@ Phases; any failure exits non-zero and no phase's failure is caught:
      param's gradient agree within the same bound, and the card's AdamW step
      equals the CPU's on the same gradients (phase_train_parity).
   4. serve: qwen2-1.5b (28 layers), granite-moe-3b-a800m (32 layers),
-     zamba2-1.2b (38 Mamba layers, 6 shared-attention insertions) and
-     xlstm-350m (20 mLSTM, 4 sLSTM layers) at full width, bf16, random
-     weights, behind repro_torch.launch.serve; the
+     zamba2-1.2b (38 Mamba layers, 6 shared-attention insertions),
+     xlstm-350m (20 mLSTM, 4 sLSTM layers), minicpm-2b (40 layers, MHA)
+     and mistral-nemo-12b (40 layers) at full width, bf16, random
+     weights, behind repro_torch.launch.serve (each serve's peak device
+     memory printed); the
      multi-LLM example (repro_torch.examples.serve_multi_llm: qwen2-1.5b,
      28 layers, and glm4-9b, 40 layers, on two engines behind a round
      robin); whisper-base (6 + 6 layers, 1500 frames, B=8: a 16-token
@@ -119,6 +123,18 @@ Phases; any failure exits non-zero and no phase's failure is caught:
      layer 2 SSD scans and 1 SSD backward, per insertion 1 flash forward
      and 1 backward); step times, tokens/s, peak memory, and one profiled
      step of each.
+  6. mesh and dry-run (phase_mesh): qwen2-1.5b served under a one-rank
+     NCCL mesh (make_debug_mesh on the card, an in-process store) with
+     phase 4's traces: every request's tokens and every call's launches as
+     in phase 4 without a mesh; the dry-run (launch/dryrun.py, in two child
+     processes: the fake process group cannot share one with NCCL) of
+     phase 5's qwen2-1.5b and granite-moe-3b-a800m steps on a 1x1 mesh,
+     its params + optimizer bytes within 1% of what the card holds after
+     init_opt_state and its peak estimate not more than 10% below phase 5's
+     measured peak, beside 6 N tokens; mistral-nemo-12b's decode cell
+     beside its phase-4 serving peak; and three production-mesh cells
+     (qwen2-1.5b train_4k on 16x16, dbrx-132b train_4k on 2x16x16,
+     zamba2-1.2b long_500k on 16x16), each record printed.
 The line before the last is a JSON object with every kernel's numbers
 (before_ms: the earlier kernel on the same inputs: the CUDA-core kernel of
 the forward kernels, the earlier copy-then-gmm path of dx and dw, the two-sweep
@@ -211,6 +227,10 @@ XLSTM_PARITY_LAYERS = 6    # one group of slstm_every = 6: 5 mLSTM layers, then 
 # The served models with attention, whose heads the kernel phase times.
 ATTENTION_ARCHS = ("qwen2-1.5b", "granite-moe-3b-a800m", "zamba2-1.2b")
 SERVE_ARCHS = ATTENTION_ARCHS + (XLSTM,)
+# Served at full width with their own head layouts, beside the above:
+# minicpm-2b's MHA (36 KV heads, D=64) and mistral-nemo-12b's D=128 at 4
+# query heads per KV head (its fsdp spec tree is the dry-run's)
+HEAD_ARCHS = ("minicpm-2b", "mistral-nemo-12b")
 # The train phase: each model at full width and depth, bf16, (B, S).
 TRAIN_SHAPES = {"qwen2-1.5b": (4, 512), "granite-moe-3b-a800m": (2, 512), XLSTM: (4, 512),
                 "zamba2-1.2b": (4, 512)}
@@ -397,6 +417,11 @@ def phase_kernels():
         # glm4-9b's heads: 16 query heads per KV head (every row of a block's
         # tile a live head) at D=128
         cases += [(32, 2, 128, s, s, True) for s in (1, 63, 256)]
+        # minicpm-2b's MHA (H=KH=36, D=64) and mistral-nemo-12b's heads
+        # (H=32, KH=8, D=128), served in phase 4
+        for H, KH, D in ((36, 36, 64), (32, 8, 128)):
+            cases += [(H, KH, D, s, s, True) for s in (1, 63, 256)]
+            cases += [(H, KH, D, 37, 100, False)]
         # whisper-base's encoder (Sq = Sk = 1500) and cross-attention of a
         # prompt against the 1500 frames, without a causal mask: the last
         # key tile is partial
@@ -421,7 +446,8 @@ def phase_kernels():
                 n_flash += 1
         for B, H, KH, D, S in ((8, 12, 2, 128, 256), (8, 24, 8, 64, 256), (8, 32, 32, 64, 256),
                                (8, 12, 2, 128, 1500), (3, 32, 2, 64, 200),
-                               (2, 6, 6, 32, 64)):
+                               (2, 6, 6, 32, 64), (8, 36, 36, 64, 256), (8, 32, 8, 128, 256),
+                               (3, 32, 8, 128, 1500)):
             lens = torch.randint(1, S + 1, (B,), generator=gen, device="cuda",
                                  dtype=torch.int32)
             lens[0] = S + 5                      # an idle slot past the cache
@@ -448,6 +474,9 @@ def phase_kernels():
     rows = {arch: _attention_rows(arch, gen, flush) for arch in ATTENTION_ARCHS}
     for arch, pair in rows.items():
         for r in pair:
+            _print_attention(arch, r)
+    for arch in HEAD_ARCHS:
+        for r in _attention_rows(arch, gen, flush):
             _print_attention(arch, r)
     # Flash alone at the longer buckets the engine pads to and a long prompt.
     for arch in ATTENTION_ARCHS:
@@ -1706,6 +1735,8 @@ def phase_serve(arch):
 
     cfg = get_config(arch)
     model = get_model(cfg)      # the family's module, which the engine calls
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     with _Counted(model) as warm:
         # warm-up: first-call costs (cuBLAS handles, allocator) out of the numbers
         serve(cfg, n_requests=2, rate=1e3, max_len=SERVE_MAX_LEN, seed=1, device="cuda")
@@ -1725,7 +1756,9 @@ def phase_serve(arch):
         print(f"[serve] {arch} {label}: rate {rate}/s, {calls['prefill']} prefills, "
               f"{calls['decode']} decode steps, kernels {json.dumps(launches)}")
         print(f"[serve] {arch} {label}: {json.dumps(summary)}")
-        runs[label] = (launches, summary)
+        runs[label] = (launches, summary, {rid: list(r.out_tokens) for rid, r in finished.items()})
+    runs["peak_bytes"] = torch.cuda.max_memory_allocated()
+    print(f"[serve] {arch}: peak device memory {runs['peak_bytes'] / 1e9:.2f} GB")
     torch.cuda.empty_cache()
     return runs
 
@@ -1796,7 +1829,7 @@ def phase_train(arch, profile=True):
     (grad_sq_min > 0), and every step launches each kernel exactly as
     _train_launches counts. Prints each step's time, tokens/s and the peak
     device memory; the last step runs inside one profiler window. Returns
-    the launches of the whole run."""
+    the launches of the whole run and the peak of allocated device bytes."""
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.train import train_loop
     from repro_torch.models import common as cm
@@ -1844,7 +1877,8 @@ def phase_train(arch, profile=True):
                                            log_every=TRAIN_STEPS + 1, device="cuda",
                                            on_step=on_step)
     launches = {n: op.launches for n, op in ops.items()}
-    peak = torch.cuda.max_memory_allocated() / 1e9
+    peak_bytes = torch.cuda.max_memory_allocated()
+    peak = peak_bytes / 1e9
     n_params = sum(t.numel() for t in cm.flatten(params).values())
     assert len(seen) == TRAIN_STEPS and losses == [m["loss"] for m in seen]
     assert launches == {n: TRAIN_STEPS * k for n, k in want.items()}, launches
@@ -1865,7 +1899,7 @@ def phase_train(arch, profile=True):
               f"its report took {time.perf_counter() - t0:.1f}s")
     del params, opt_state
     torch.cuda.empty_cache()
-    return launches
+    return launches, peak_bytes
 
 
 @contextlib.contextmanager
@@ -2035,6 +2069,203 @@ def phase_profile(arch, steps=4):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- phase 6
+MESH_ARCH = "qwen2-1.5b"
+# (b): the dry-run of the train phase's steps (bf16, remat) and of
+# mistral-nemo-12b's serving decode step (the engine's 8 slots of
+# SERVE_MAX_LEN positions), each on a 1x1 mesh
+DRYRUN_CARD = {"qwen2-1.5b": ("train",) + TRAIN_SHAPES["qwen2-1.5b"],
+               "granite-moe-3b-a800m": ("train",) + TRAIN_SHAPES["granite-moe-3b-a800m"],
+               "mistral-nemo-12b": ("decode", 8, SERVE_MAX_LEN)}
+# (c): cells of the production meshes
+DRYRUN_MESH = (("qwen2-1.5b", "train_4k", False), ("dbrx-132b", "train_4k", True),
+               ("zamba2-1.2b", "long_500k", False))
+PERSIST_TOL = 0.01     # the dry-run's params + optimizer bytes against the card's
+PEAK_UNDER = 0.10      # how far below the card's peak the dry-run's estimate may fall
+_DRYRUN = """
+import json, sys
+from repro_torch.configs.base import InputShape
+from repro_torch.launch import dryrun
+out, card, cells = sys.argv[1], json.loads(sys.argv[2]), json.loads(sys.argv[3])
+for arch, (kind, B, S) in card.items():
+    shape = InputShape(f"{kind}_b{B}_s{S}", S, B, kind)
+    rec = dryrun.run_cell(arch, shape.name, out_dir=out, verbose=False, shape=shape,
+                          mesh_shape=((1, 1), ("data", "model")))
+    print("[dryrun-record]", json.dumps(rec), flush=True)
+for arch, name, multi in cells:
+    rec = dryrun.run_cell(arch, name, multi_pod=multi, out_dir=out, verbose=False)
+    print("[dryrun-record]", json.dumps(rec), flush=True)
+"""
+
+
+def _dry_run(card, cells, out):
+    """Start the dry-run of ``card`` ({arch: (kind, B, S)} on a 1x1 mesh)
+    and ``cells`` ((arch, shape, multi_pod) on a production mesh) in a
+    child process, which writes its records under ``out``: its fake process
+    group of 256 or 512 ranks and this process's NCCL group cannot share a
+    process, and it needs no card. ``_dry_run_records`` waits for it."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    return subprocess.Popen([sys.executable, "-c", _DRYRUN, out, json.dumps(card),
+                             json.dumps(cells)], env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def _dry_run_records(proc, n):
+    """The ``n`` records a ``_dry_run`` child prints, once it has exited."""
+    try:
+        stdout, stderr = proc.communicate(timeout=600)
+    finally:
+        proc.kill()
+    assert proc.returncode == 0, f"dry-run child failed:\n{stderr[-4000:]}"
+    recs = [json.loads(line.split(" ", 1)[1]) for line in stdout.splitlines()
+            if line.startswith("[dryrun-record] ")]
+    assert len(recs) == n, stdout[-2000:]
+    return recs
+
+
+def _card_persistent(arch):
+    """The bytes the card holds for ``arch``'s params and AdamW state, right
+    after init_opt_state (bf16 params, fp32 moments, an int32 step)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.api import get_model
+    from repro_torch.train.optimizer import init_opt_state
+
+    cfg = get_config(arch)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    params = get_model(cfg).init(torch.Generator(device="cuda").manual_seed(0), cfg)
+    opt_state = init_opt_state(params)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - base
+    del params, opt_state
+    torch.cuda.empty_cache()
+    return held
+
+
+def _decode_peak(arch, steps=4):
+    """The peak of allocated device bytes over ``steps`` engine decode steps
+    of ``arch`` at full width, bf16, with every one of the engine's 8 slots
+    of SERVE_MAX_LEN positions busy: params, cache and a decode step's
+    activations (the peak is reset after the prefills, so neither the
+    params' fp32 init nor a prefill is in it)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.api import get_model
+    from repro_torch.serving.engine import TorchEngine
+
+    cfg = get_config(arch)
+    params = get_model(cfg).init(torch.Generator(device="cuda").manual_seed(0), cfg)
+    eng = TorchEngine(cfg, params, max_batch=8, max_len=SERVE_MAX_LEN)
+    rng = np.random.default_rng(0)
+    for rid in range(8):
+        eng.submit(rid, rng.integers(0, cfg.vocab_size, size=(48,)), 64)
+    eng.step()                                   # 8 prefills + 1 decode step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(steps):
+        eng.step()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    del eng, params
+    torch.cuda.empty_cache()
+    return peak
+
+
+def phase_mesh(runs, train_peaks):
+    """The distributed layer and the dry-run against the card.
+    (a) A one-rank NCCL group (from an in-process store: no address, no
+    network) and make_debug_mesh() on the card: qwen2-1.5b served through
+    TorchEngine under use_mesh, phase 4's poisson5 and burst traces, greedy:
+    every request's tokens equal phase 4's without a mesh, every call
+    launches flash and decode attention as in phase 4 (the burst run, whose
+    batching has no clock in it, the same launches in all), and the group is
+    torn down. (b) The dry-run of phase 5's qwen2-1.5b and
+    granite-moe-3b-a800m steps on a 1x1 mesh: its params and optimizer
+    bytes within PERSIST_TOL of what the card holds after init_opt_state,
+    its peak estimate not below phase 5's measured peak by more than
+    PEAK_UNDER, and its FLOPs per step beside 6 N tokens; mistral-nemo-12b's
+    decode cell beside the card's peak over its decode steps (the engine's
+    8 slots busy). (c) Three cells of the
+    production meshes, each record printed."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed.sharding import current_mesh, use_mesh
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.api import get_model
+
+    import tempfile
+    out = tempfile.mkdtemp(prefix="dryrun_")
+    t0 = time.time()
+    # two children, each on its own core, while the card serves (a)
+    children = [(_dry_run(DRYRUN_CARD, [], out), len(DRYRUN_CARD)),
+                (_dry_run({}, DRYRUN_MESH, out), len(DRYRUN_MESH))]
+    cfg = get_config(MESH_ARCH)
+    model = get_model(cfg)
+    with mesh_mod.process_group(1, "nccl"):
+        mesh = mesh_mod.make_debug_mesh()
+        assert mesh.device_type == "cuda" and mesh.size() == 1, mesh
+        with use_mesh(mesh):
+            for label, rate in (("poisson5", 5.0), ("burst", 1e6)):
+                with _Counted(model) as counted:
+                    finished, summary = serve(cfg, n_requests=16, rate=rate, max_batch=8,
+                                              max_len=SERVE_MAX_LEN, seed=0, device="cuda")
+                launches, want = counted.launches(), counted.expected([cfg])
+                before, _, tokens = runs[MESH_ARCH][label]
+                got = {rid: list(r.out_tokens) for rid, r in finished.items()}
+                assert bool(counted.finite), f"mesh {label}: non-finite logits"
+                assert launches == want, f"mesh {label}: launches {launches}, want {want}"
+                assert got == tokens, f"mesh {label}: tokens differ from phase 4's without a mesh"
+                assert launches["flash_attention"] == before["flash_attention"], (launches, before)
+                if label == "burst":
+                    assert launches == before, f"mesh burst: launches {launches}, phase 4 {before}"
+                print(f"[mesh] {MESH_ARCH} {label} under a one-rank {mesh.device_type} mesh "
+                      f"{mesh}: {sum(map(len, got.values()))} tokens of 16 requests equal phase "
+                      f"4's without a mesh; kernels {json.dumps(launches)} (phase 4: "
+                      f"{json.dumps(before)}); {summary['tok_per_s']:.1f} tok/s")
+        assert current_mesh() is None
+    import torch.distributed as dist
+    assert not dist.is_initialized()
+
+    held = {arch: _card_persistent(arch) for arch, (kind, _, _) in DRYRUN_CARD.items()
+            if kind == "train"}
+    recs = [r for proc, n in children for r in _dry_run_records(proc, n)]
+    import shutil
+    shutil.rmtree(out, ignore_errors=True)
+    print(f"[dryrun] {len(recs)} cells in two child processes, done {time.time() - t0:.1f}s "
+          f"after they started")
+    card = _card()
+    for rec in recs[:len(DRYRUN_CARD)]:
+        arch, mem = rec["arch"], rec["memory"]
+        assert rec["status"] == "ok" and rec["n_devices"] == 1, rec
+        if rec["kind"] == "train":
+            est = mem["params"] + mem["optimizer"]
+            ratio = est / held[arch]
+            assert abs(ratio - 1) <= PERSIST_TOL, \
+                f"{arch}: dry-run params + optimizer {est} B, the card holds {held[arch]} B"
+            peak = train_peaks[arch]
+            assert mem["total"] >= (1 - PEAK_UNDER) * peak, \
+                f"{arch}: dry-run peak {mem['total'] / 1e9:.2f} GB under the card's {peak / 1e9:.2f} GB"
+            six_nd = 6 * rec["params_active"] * rec["global_batch"] * rec["seq_len"]
+            print(f"[dryrun] {arch} train B={rec['global_batch']} S={rec['seq_len']} on 1x1 vs "
+                  f"{card}: params + optimizer {est / 1e9:.4f} GB, the card {held[arch] / 1e9:.4f} "
+                  f"GB (ratio {ratio:.5f}); peak estimate {mem['total'] / 1e9:.2f} GB (activations "
+                  f"{mem['activations'] / 1e9:.2f}), the card's phase-5 peak {peak / 1e9:.2f} GB "
+                  f"(ratio {mem['total'] / peak:.3f}); FLOPs per step {rec['flops_per_device']:.4e}, "
+                  f"6 N tokens {six_nd:.4e} (ratio {rec['flops_per_device'] / six_nd:.3f})")
+        else:
+            peak = _decode_peak(arch)
+            print(f"[dryrun] {arch} decode B={rec['global_batch']} Smax={rec['seq_len']} on 1x1: "
+                  f"estimate {mem['total'] / 1e9:.2f} GB (params {mem['params'] / 1e9:.2f}, cache "
+                  f"{mem['cache'] / 1e9:.2f}, activations {mem['activations'] / 1e9:.2f}); the "
+                  f"card's peak over 4 decode steps with 8 slots busy on {card} {peak / 1e9:.2f} GB "
+                  f"(ratio {mem['total'] / peak:.3f}; its phase-4 serving peak, the params' fp32 "
+                  f"init included, {runs[arch]['peak_bytes'] / 1e9:.2f} GB)")
+    for rec in recs[len(DRYRUN_CARD):]:
+        assert rec["status"] == "ok", rec
+        print(f"[dryrun] {json.dumps(rec)}")
+
+
 @contextlib.contextmanager
 def _timed(what):
     """Prints the wall time of the phase run inside the ``with``."""
@@ -2072,7 +2303,7 @@ def main():
     with _timed(f"3 train parity {SSD_ARCH}"):
         phase_train_parity(SSD_ARCH, n_layers=SSD_PARITY_LAYERS, S=SSD_PARITY_S)
     runs = {}
-    for arch in SERVE_ARCHS:
+    for arch in SERVE_ARCHS + HEAD_ARCHS:
         with _timed(f"4 serve {arch}"):
             runs[arch] = phase_serve(arch)
     with _timed("4 multi-LLM and model API"):
@@ -2082,10 +2313,12 @@ def main():
     with _timed("4 profiles"):
         for arch in SERVE_ARCHS + ("glm4-9b",):
             phase_profile(arch)
-    trained = {}
+    trained, train_peaks = {}, {}
     for arch in TRAIN_SHAPES:
         with _timed(f"5 train {arch}"):
-            trained[arch] = phase_train(arch)
+            trained[arch], train_peaks[arch] = phase_train(arch)
+    with _timed("6 mesh and dry-run"):
+        phase_mesh(runs, train_peaks)
     # each kernel's launches on its path's run: the forward kernels on the
     # poisson5 serving run (granite's runs attention and the grouped matmul,
     # zamba2's the SSD scan), the backward ones on granite's train run, the

@@ -4,16 +4,17 @@
 
 An own copy of ``ModelConfig``, cut to the fields and properties the
 dense, MoE, hybrid, ssm (xLSTM), audio and vlm paths read, in serving and
-in training. ``weight_sharding``, ``kv_seq_shard`` and ``vision_stub`` are
-kept so that the per-arch ``config()`` functions stay verbatim copies;
-nothing in the port reads the first two until it has a mesh, and the
-third records that the vision tower is a stub (the batch brings the
-vision embeddings). ``param_dtype`` is the reference's training field,
+in training, and the dry-run's input shapes and parameter count.
+``weight_sharding`` and ``kv_seq_shard`` choose the spec trees
+(``param_specs``, ``cache_specs``), which only a mesh reads;
+``vision_stub`` records that the vision tower is a stub (the batch brings
+the vision embeddings). ``param_dtype`` is the reference's training field,
 unread there as here: both inits build params in ``dtype``.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
+from typing import Tuple
 
 
 @dataclass(frozen=True)
@@ -67,8 +68,8 @@ class ModelConfig:
     dtype: str = "bfloat16"          # weight and activation dtype
     param_dtype: str = "float32"     # master-weight dtype, unread (see above)
     remat: bool = True               # activation checkpointing of each layer in training
-    weight_sharding: str = "tp"      # sharding hint, unused without a mesh
-    kv_seq_shard: bool = False       # sharding hint, unused without a mesh
+    weight_sharding: str = "tp"      # tp | fsdp (fsdp: "data" on the weights' input dim)
+    kv_seq_shard: bool = False       # decode KV: the sequence over "model", not the heads
 
     @property
     def resolved_head_dim(self) -> int:
@@ -92,5 +93,75 @@ class ModelConfig:
         """True if decode state is O(1) in context length (no full KV)."""
         return self.family in ("ssm", "hybrid")
 
+    @property
+    def supports_long_context(self) -> bool:
+        """sub-quadratic decode => long_500k cell runs."""
+        return self.is_recurrent
+
+    # --- parameter counting (the reference's closed form, for the dry-run) ---
+    def param_count(self, active_only: bool = False) -> int:
+        d, L = self.d_model, self.n_layers
+        hd = self.resolved_head_dim
+        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        if self.family in ("dense", "vlm", "audio", "moe"):
+            attn = d * (self.n_heads * hd) + 2 * d * (self.n_kv_heads * hd) \
+                + (self.n_heads * hd) * d
+            if self.family == "moe":
+                n_e = self.top_k if active_only else self.n_experts
+                ffn = n_e * 3 * d * self.d_ff + d * self.n_experts  # router
+            else:
+                ffn = 3 * d * self.d_ff
+            total = emb + L * (attn + ffn + 2 * d)
+            if self.is_encoder_decoder:
+                enc = self.n_enc_layers * (attn + 3 * d * self.d_ff + 2 * d)
+                cross = L * attn          # cross-attention in decoder
+                total += enc + cross
+            return total
+        if self.family == "hybrid":
+            di, N = self.d_inner, self.ssm_state
+            H = self.ssm_nheads
+            mamba = d * 2 * di + di * self.ssm_conv + di * 2 * N \
+                + 2 * H + di + di * d + d * di  # in/out/gate projections approx
+            shared_attn = d * (self.n_heads * hd) + 2 * d * (self.n_kv_heads * hd) \
+                + (self.n_heads * hd) * d + d * self.d_ff * 3
+            n_attn = L // max(self.attn_every, 1) if self.attn_every else 0
+            return emb + L * (mamba + 2 * d) + (shared_attn if n_attn else 0)
+        if self.family == "ssm":  # xLSTM
+            di = self.mlstm_d_inner
+            mlstm = d * 2 * di + 3 * di * di // max(self.n_heads, 1) + di * d + 4 * di
+            slstm = 4 * d * d + 4 * d
+            n_s = L // self.slstm_every if self.slstm_every else 0
+            return emb + (L - n_s) * mlstm + n_s * slstm + L * 2 * d
+        raise ValueError(self.family)
+
     def with_(self, **kw) -> "ModelConfig":
         return replace(self, **kw)
+
+
+# ----------------------------------------------------------------------
+# The dry-run's input shapes (the reference's four, identical for every arch).
+# ----------------------------------------------------------------------
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES: Tuple[InputShape, ...] = (
+    InputShape("train_4k", 4_096, 256, "train"),
+    InputShape("prefill_32k", 32_768, 32, "prefill"),
+    InputShape("decode_32k", 32_768, 128, "decode"),
+    InputShape("long_500k", 524_288, 1, "decode"),
+)
+
+SHAPE_BY_NAME = {s.name: s for s in SHAPES}
+
+
+def cell_is_runnable(cfg: ModelConfig, shape: InputShape) -> Tuple[bool, str]:
+    """Whether an (arch x shape) dry-run cell runs, and why not if skipped."""
+    if shape.name == "long_500k" and not cfg.supports_long_context:
+        return False, ("skipped: pure full-attention arch — O(seq^2) attention and "
+                       f"{shape.seq_len}-token KV are quadratic")
+    return True, ""

@@ -2,6 +2,8 @@
 device rule every entry point follows."""
 from __future__ import annotations
 
+import threading
+
 import torch
 
 NEG_INF = -1e30  # large-negative instead of -inf: keeps masked softmax NaN-free
@@ -62,6 +64,29 @@ def check_ssd_operands(what: str, compute, fp32) -> None:
             raise ValueError(f"{what}: operands must be contiguous in their last axis")
 
 
+_observer = threading.local()
+
+
+def plain(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``: a kernel's plain version, the route of a tensor
+    on the CPU or the meta device. An observer installed by ``observe_plain``
+    (the dry-run's cost analysis, or ``distributed.shard_kernels.per_shard``,
+    which runs it on each rank's shards) is handed the call instead."""
+    obs = getattr(_observer, "fn", None)
+    if obs is None:
+        return fn(*args, **kwargs)
+    return obs(fn, args, kwargs)
+
+
+def observe_plain(obs):
+    """Install ``obs(fn, args, kwargs)`` around every ``plain`` call of this
+    thread (None removes it); returns the one it replaces, which ``obs``
+    calls in its turn where it runs ``fn``."""
+    prev = getattr(_observer, "fn", None)
+    _observer.fn = obs
+    return prev
+
+
 def resolve_device(device=None) -> torch.device:
     """``cuda`` unless the caller names another device; raises if CUDA is
     asked for and absent (there is no silent move to the CPU)."""
@@ -73,12 +98,23 @@ def resolve_device(device=None) -> torch.device:
 
 
 def kernel_route(*tensors: torch.Tensor) -> str:
-    """'cuda' when every tensor lies on one CUDA device, 'cpu' when every
-    tensor lies on the CPU (the plain version's only use); raises else."""
+    """'cuda' when every tensor lies on one CUDA device; 'cpu', the plain
+    version's route and its only use, when every tensor lies on the CPU or
+    on the meta device (shapes without data: the dry-run's tensors, whose
+    costs are the plain version's); raises else, and for a DTensor on the
+    card (a kernel takes the local tensors of one rank, never a DTensor)."""
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"tensors lie on several devices: {sorted(map(str, devices))}")
     dev = devices.pop()
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"no kernel for device {dev}")
-    return dev.type
+    if dev.type == "cuda" and any(type(t) is not torch.Tensor and _is_dtensor(t)
+                                  for t in tensors):
+        raise TypeError("no kernel takes a DTensor on the card: pass its local tensor")
+    return "cuda" if dev.type == "cuda" else "cpu"
+
+
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)

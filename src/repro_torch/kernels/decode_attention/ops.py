@@ -21,7 +21,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.common import (DTYPE_CODES, HEAD_DIMS, cdiv, check_aligned,
-                                        check_launch, check_operands, kernel_route)
+                                        check_launch, check_operands, kernel_route, plain)
 from repro_torch.kernels.decode_attention import ref as _ref
 
 MAX_GROUP = 16   # query heads per KV head the kernel keeps in one block
@@ -95,8 +95,8 @@ def decode_attention(q, k_cache, v_cache, lengths, *, scale=None, window=0):
         raise ValueError(f"decode_attention: window {window} < 0")
     check_operands("decode_attention", q, k_cache, v_cache)
     if route == "cpu":
-        return _ref.decode_attention_reference(q, k_cache, v_cache, lengths,
-                                               scale=scale, window=window)
+        return plain(_ref.decode_attention_reference, q, k_cache, v_cache, lengths,
+                     scale=scale, window=window)
 
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k_cache, v_cache)):
         raise NotImplementedError("decode_attention: the CUDA kernel has no backward; "

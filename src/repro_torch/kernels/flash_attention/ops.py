@@ -30,7 +30,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.common import (DTYPE_CODES, HEAD_DIMS, cdiv, check_aligned,
-                                        check_launch, check_operands, kernel_route)
+                                        check_launch, check_operands, kernel_route, plain)
 from repro_torch.kernels.flash_attention import ref as _ref
 
 VARIANTS = {"fma": 0, "mma": 1}   # the C entry points' `variant`
@@ -107,12 +107,12 @@ def _scale(scale, D):
 def _forward(route, q, k, v, causal, window, scale, with_lse):
     """(out, lse or None); lse (B, H, Sq) fp32 only if ``with_lse``."""
     if route == "cpu":
-        out = _ref.mha_reference(q, k, v, causal=causal, window=window, scale=scale)
+        out = plain(_ref.mha_reference, q, k, v, causal=causal, window=window, scale=scale)
         if not with_lse:
             return out, None
         # contiguous, as the kernel's output is, for the backward's checks
-        return out.contiguous(), _ref.lse_reference(q, k, causal=causal, window=window,
-                                                    scale=scale)
+        return out.contiguous(), plain(_ref.lse_reference, q, k, causal=causal,
+                                       window=window, scale=scale)
     _check_cuda("flash_attention", q, k, v)
     B, Sq, H, D = q.shape
     Sk, KH = k.shape[1:3]
@@ -184,8 +184,8 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True, window:
         raise ValueError(f"flash_attention_bwd: lse must be contiguous fp32 {(B, H, Sq)}, "
                          f"got {lse.dtype}{tuple(lse.shape)}")
     if route == "cpu":
-        return _ref.mha_backward_reference(q, k, v, dout, causal=causal, window=window,
-                                           scale=scale)
+        return plain(_ref.mha_backward_reference, q, k, v, dout, causal=causal,
+                     window=window, scale=scale)
     _check_cuda("flash_attention_bwd", q, k, v, out, dout)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)

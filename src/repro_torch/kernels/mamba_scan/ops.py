@@ -34,7 +34,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.common import (DTYPE_CODES, cdiv, check_launch,
-                                        check_ssd_operands, kernel_route)
+                                        check_ssd_operands, kernel_route, plain)
 from repro_torch.kernels.mamba_scan import ref as _ref
 
 STATE_DIMS = (16, 32, 64, 128)   # N the CUDA kernels are instantiated for
@@ -265,7 +265,7 @@ def ssd_scan(x, dt, A, Bmat, Cmat, D, init_state=None, *, with_state=False):
     them through those strides, without a copy."""
     route = _check_inputs("ssd_scan", x, dt, A, Bmat, Cmat, D, init_state)
     if route == "cpu":
-        y, state = _ref.ssd_chunked_reference(x, dt, A, Bmat, Cmat, D, init_state)
+        y, state = plain(_ref.ssd_chunked_reference, x, dt, A, Bmat, Cmat, D, init_state)
         return (y, state) if with_state else y
     state_in = () if init_state is None else (init_state,)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, A, Bmat, Cmat, D,
@@ -296,7 +296,7 @@ def ssd_scan_bwd(x, dt, A, Bmat, Cmat, D, init_state, dy):
         raise ValueError(f"ssd_scan_bwd: dy {dy.dtype}{tuple(dy.shape)} must match x "
                          f"{x.dtype}{tuple(x.shape)}")
     if route == "cpu":
-        return _ref.ssd_backward_reference(x, dt, A, Bmat, Cmat, D, init_state, dy)
+        return plain(_ref.ssd_backward_reference, x, dt, A, Bmat, Cmat, D, init_state, dy)
     dy = dy.contiguous()
     Bsz, S, H, P = x.shape
     variant = "mma" if bwd_takes_mma(x, Bmat, Cmat, dy) else "fma"

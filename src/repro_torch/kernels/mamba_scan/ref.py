@@ -64,9 +64,9 @@ def ssd_chunked_reference(x, dt, A, Bmat, Cmat, D, init_state=None,
                            for a in (xf, dtf, Bf, Cf))
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=x.device))
     ys = []
-    for c in range(nc):
-        sl = slice(c * chunk, (c + 1) * chunk)
-        xc, dtc, Bc, Cc = xf[:, sl], dtf[:, sl], Bf[:, sl], Cf[:, sl]
+    # the chunks as views cut by one split each (their gradient gathers in
+    # one cat, not a full-length tensor per chunk)
+    for xc, dtc, Bc, Cc in zip(*(a.split(chunk, dim=1) for a in (xf, dtf, Bf, Cf))):
         cum = torch.cumsum(dtc * Af, dim=1)                       # (B,T,H) log L_t
         # intra-chunk: M[t,u] = (C_t.B_u) dt_u exp(cum_t - cum_u), u <= t;
         # the exponent is taken only where u <= t (above the diagonal it is

@@ -29,7 +29,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.common import (DTYPE_CODES, check_launch, check_operands,
-                                        kernel_route)
+                                        kernel_route, plain)
 from repro_torch.kernels.moe_gmm import ref as _ref
 
 VARIANTS = {"fma": 0, "mma": 1}   # the C entry points' `variant` (1: tensor cores)
@@ -125,7 +125,7 @@ class _GroupedMatmul(torch.autograd.Function):
 
 def _product(device, x, w):
     if device == "cpu":
-        return _ref.gmm_reference(x, w)
+        return plain(_ref.gmm_reference, x, w)
     (_, C, d), f = x.shape, w.shape[2]
     aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
     out = _gemm(x, w, "nn", C, f, d) if route(x.dtype, C, d, f, aligned) == "tiled" \
@@ -159,7 +159,7 @@ def grouped_matmul_dx(g, w):
                          "must be (E, C, f) and (E, d, f)")
     check_operands("grouped_matmul_dx", g, w)
     if route == "cpu":
-        return _ref.gmm_dx_reference(g, w)
+        return plain(_ref.gmm_dx_reference, g, w)
     C, f = g.shape[1:]
     out = _gemm(g, w, "nt", C, w.shape[1], f)
     grouped_matmul_dx.launches += 1
@@ -179,7 +179,7 @@ def grouped_matmul_dw(x, g):
                          "must be (E, C, d) and (E, C, f)")
     check_operands("grouped_matmul_dw", x, g)
     if route == "cpu":
-        return _ref.gmm_dw_reference(x, g)
+        return plain(_ref.gmm_dw_reference, x, g)
     C, d = x.shape[1:]
     out = _gemm(x, g, "tn", d, g.shape[2], C)
     grouped_matmul_dw.launches += 1

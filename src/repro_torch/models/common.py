@@ -9,6 +9,8 @@ from typing import Any, Dict, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.sharding import P, grad_as_input, is_dtensor, rows
+
 VOCAB_PAD = 256
 
 
@@ -55,8 +57,9 @@ def flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
 def layer_views(stacked: Dict[str, Any], n: int):
     """Per-layer views of a tree of params stacked along a leading axis of
     ``n`` layers. Each leaf is cut by one ``unbind``, so in training the
-    layers' gradients go back to the stacked tensor in one stack."""
-    flat = {k: v.unbind(0) for k, v in flatten(stacked).items()}
+    layers' gradients go back to the stacked tensor in one stack (of a
+    DTensor leaf, each layer's gradient laid out as its slice first)."""
+    flat = {k: [grad_as_input(t) for t in v.unbind(0)] for k, v in flatten(stacked).items()}
     return [nest({k: views[i] for k, views in flat.items()}) for i in range(n)]
 
 
@@ -72,6 +75,30 @@ def remat(cfg, fn, *args):
             if isinstance(t, torch.Tensor)):
         return checkpoint(fn, *args, use_reentrant=False)
     return fn(*args)
+
+
+# ------------------------------------------------------------- spec trees
+def stacked_specs(specs: Dict[str, Any]) -> Dict[str, Any]:
+    """Specs of one layer -> specs of the layers stacked along a leading
+    axis: a None entry in front of each (the JAX package's ``stacked``)."""
+    return {k: stacked_specs(s) if isinstance(s, dict) else P(None, *s)
+            for k, s in specs.items()}
+
+
+def embedding_specs(cfg) -> Dict[str, Any]:
+    """The embedding's rows and the unembedding's columns over "model"."""
+    s = {"embed": P("model", None)}
+    if not cfg.tie_embeddings:
+        s["unembed"] = P(None, "model")
+    return s
+
+
+NORM_SPECS = {"scale": P(None)}
+
+
+def fsdp_axis(cfg):
+    """"data" on the input dim of the weights under fsdp, else None."""
+    return "data" if cfg.weight_sharding == "fsdp" else None
 
 
 # ---------------------------------------------------------------- init utils
@@ -170,7 +197,44 @@ def sinusoidal_pos(S: int, d: int, offset=0, device=None):
 
 # --------------------------------------------------------------- embeddings
 def embed_tokens(p, tokens):
+    if is_dtensor(p["embed"]):
+        return rows(_sharded_embedding(p["embed"], tokens.long()))
     return p["embed"][tokens.long()]
+
+
+def _vocab_slice(t, dim: int):
+    """(mesh dims that shard ``t``'s dim ``dim``, the index of this rank's
+    first row along it)."""
+    mesh = t.device_mesh
+    dims = [i for i, p in enumerate(t.placements) if p.is_shard(dim)]
+    first = 0
+    for i in dims:
+        first = first * mesh.size(i) + mesh.get_local_rank(i)
+    return dims, first * t.to_local().shape[dim]
+
+
+def _sharded_embedding(table, tokens):
+    """Rows of a DTensor table (the dry-run's, the vocab over "model") for
+    DTensor token ids, as vocab-parallel embedding looks them up: each rank
+    reads the ids its slice holds from its slice (zeros for the others),
+    and the sum over the slices is left partial for ``rows`` to complete.
+    Local ops only, its backward too: DTensor's index rule is missing, or
+    its embedding rule's gradient cannot meet another, in some releases."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    mesh = table.device_mesh
+    table = table.redistribute(mesh, [p if p.is_shard(0) else Replicate()
+                                      for p in table.placements])
+    vocab, first = _vocab_slice(table, 0)
+    ids = tokens.redistribute(mesh, [Replicate() if i in vocab or not p.is_shard(0) else p
+                                     for i, p in enumerate(tokens.placements)])
+    placed = [Partial() if i in vocab else p for i, p in enumerate(ids.placements)]
+    tl, il = table.to_local(), ids.to_local() - first
+    mine = (il >= 0) & (il < tl.shape[0])
+    out = torch.nn.functional.embedding(il.clamp(0, tl.shape[0] - 1), tl) * mine[..., None]
+    shape = (*tokens.shape, table.shape[1])
+    return DTensor.from_local(out, mesh, placed, run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta").stride())
 
 
 def unembed(p, cfg, x):
@@ -187,9 +251,44 @@ def cross_entropy(logits, labels, vocab_size: int):
     axis of ``logits``; other labels are masked out, and the mean is over
     the valid ones (at least one)."""
     logits = logits.to(wide(logits.dtype))
-    lse = torch.logsumexp(logits, dim=-1)
     labels = labels.long()
     mask = (labels >= 0) & (labels < vocab_size)
-    ll = logits.gather(-1, torch.where(mask, labels, 0)[..., None])[..., 0]
+    if is_dtensor(logits) and any(p.is_shard(logits.ndim - 1) and logits.device_mesh.size(i) > 1
+                                  for i, p in enumerate(logits.placements)):
+        lse, ll = _sharded_ce_terms(logits, labels)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = logits.gather(-1, torch.where(mask, labels, 0)[..., None])[..., 0]
     nll = torch.where(mask, lse - ll, 0.0)
     return nll.sum() / mask.sum().clamp(min=1)
+
+
+def _sharded_ce_terms(logits, labels):
+    """(log-sum-exp, the label's logit), each (B, S), of DTensor logits (the
+    dry-run's, the vocab over "model"), as vocab-parallel cross entropy
+    computes them: each rank reduces its own slice of the vocab and a
+    collective of (B, S) values completes the max and the sums. Its
+    backward stays on the slices too; torch.logsumexp, a gather's backward
+    or a sum's broadcast gradient would each put the whole vocab on every
+    rank."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    mesh, plc = logits.device_mesh, logits.placements
+    vdim = logits.ndim - 1
+    vocab = [i for i, p in enumerate(plc) if p.is_shard(vdim)]
+    rows = [p if p.is_shard() and p.dim < vdim else Replicate() for p in plc]
+    part = lambda kind: [Partial(kind) if i in vocab else p for i, p in enumerate(rows)]  # noqa: E731
+
+    def reduce(t, kind):
+        return DTensor.from_local(t, mesh, part(kind), run_check=False) \
+            .redistribute(mesh, rows).to_local()
+
+    lg = logits.to_local()
+    lb = labels.redistribute(mesh, rows).to_local()
+    first = _vocab_slice(logits, vdim)[1]      # the vocab index of this rank's slice
+    mx = reduce(lg.detach().amax(-1), "max")
+    lse = mx + torch.log(reduce(torch.exp(lg - mx[..., None]).sum(-1), "sum"))
+    hit = torch.arange(first, first + lg.shape[-1], device=lg.device) == lb[..., None]
+    ll = reduce(torch.where(hit, lg, 0.0).sum(-1), "sum")
+    wrap = lambda t: DTensor.from_local(t, mesh, rows, run_check=False)  # noqa: E731
+    return wrap(lse), wrap(ll)

@@ -15,6 +15,8 @@ from typing import Dict, List, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding as sh
+from repro_torch.distributed.sharding import P, batch_axes, constrain
 from repro_torch.kernels.common import resolve_device
 from repro_torch.kernels.mamba_scan import ops as ssd_ops
 from repro_torch.models import attention as attn
@@ -58,6 +60,18 @@ def param_shapes(cfg) -> Dict[str, Tuple[int, ...]]:
     return s
 
 
+def param_specs(cfg) -> Dict[str, P]:
+    """Flat param keys (as ``param_shapes``) -> partition specs."""
+    fsdp = cm.fsdp_axis(cfg)
+    mamba = {"ln": cm.NORM_SPECS, "in_proj": P(fsdp, "model"), "conv_w": P(None, "model"),
+             "conv_b": P("model"), "A_log": P(None), "D": P(None), "dt_bias": P(None),
+             "norm": {"scale": P("model")}, "out_proj": P("model", fsdp)}
+    shared = {"ln": cm.NORM_SPECS, "attn": attn.attn_specs(cfg), "ln2": cm.NORM_SPECS,
+              "mlp": mlp_mod.mlp_specs(cfg)}
+    return cm.flatten({"emb": cm.embedding_specs(cfg), "mamba": cm.stacked_specs(mamba),
+                       "shared": shared, "ln_f": cm.NORM_SPECS})
+
+
 FP32_KEYS = ("mamba/A_log", "mamba/D", "mamba/dt_bias")   # fp32 in every model
 
 
@@ -84,7 +98,9 @@ def init(gen: torch.Generator, cfg, dtype: torch.dtype | None = None):
 def _mamba_project(p, cfg, x):
     """x (..., d) -> z (..., di), xBC (..., cd), dt (..., H) post-activation."""
     di, cd = cfg.d_inner, _conv_dim(cfg)
-    proj = x @ p["in_proj"]
+    # whole on every rank before it is cut into z, xBC and dt, whose
+    # bounds the model axis's shards do not meet (a no-op on plain tensors)
+    proj = sh.rows(x @ p["in_proj"])
     dt = F.softplus(proj[..., di + cd:].float() + p["dt_bias"])
     return proj[..., :di], proj[..., di:di + cd], dt
 
@@ -96,7 +112,7 @@ def _split_xbc(cfg, xBC):
 
 def _gated_out(p, cfg, h, y, z):
     y = cm.rmsnorm(y * F.silu(z), p["norm"], cfg.norm_eps)
-    return h + y @ p["out_proj"]
+    return h + sh.rows(y @ p["out_proj"])
 
 
 def mamba_forward(p, cfg, h, return_state=False):
@@ -111,10 +127,16 @@ def mamba_forward(p, cfg, h, return_state=False):
     pad = F.pad(xBC, (0, 0, cfg.ssm_conv - 1, 0))
     conv = sum(pad[:, i:i + S, :] * w[i] for i in range(cfg.ssm_conv)) + p["conv_b"]
     x, Bm, Cm = _split_xbc(cfg, F.silu(conv))
-    out = ssd_ops.ssd_scan(x.reshape(B, S, H, Pd), dt, -torch.exp(p["A_log"]),
-                           Bm, Cm, p["D"], with_state=return_state)
+    # the scan's operands with the heads over "model" and the sequence whole
+    # (a no-op on plain tensors): each rank scans its own heads
+    dp = batch_axes()
+    x = constrain(sh.reshape(x, B, S, H, Pd), dp, None, "model", None)
+    dt = constrain(dt, dp, None, "model")
+    Bm, Cm = constrain(Bm, dp, None, None), constrain(Cm, dp, None, None)
+    out = ssd_ops.ssd_scan(x, dt, -torch.exp(p["A_log"]), Bm, Cm, p["D"],
+                           with_state=return_state)
     y, state = out if return_state else (out, None)
-    out_h = _gated_out(p, cfg, h, y.reshape(B, S, cfg.d_inner), z)
+    out_h = _gated_out(p, cfg, h, sh.reshape(y, B, S, cfg.d_inner), z)
     if not return_state:
         return out_h
     # the last (conv-1) raw xBC inputs, needed to continue the conv
@@ -132,9 +154,9 @@ def mamba_decode(p, cfg, h, ssm_state, conv_buf):
     # fp32 sum, one rounding: the JAX einsum's accumulation
     conv = (window.float() * p["conv_w"].float()).sum(1).to(h.dtype) + p["conv_b"]
     x, Bm, Cm = _split_xbc(cfg, F.silu(conv))
-    y, state = ssd_ops.decode_step(ssm_state, x.reshape(B, cfg.ssm_nheads, cfg.ssm_head_dim),
+    y, state = ssd_ops.decode_step(ssm_state, sh.reshape(x, B, cfg.ssm_nheads, cfg.ssm_head_dim),
                                    dt, -torch.exp(p["A_log"]), Bm, Cm, p["D"])
-    return _gated_out(p, cfg, h, y.reshape(B, cfg.d_inner), z), state, window[:, 1:, :]
+    return _gated_out(p, cfg, h, sh.reshape(y, B, cfg.d_inner), z), state, window[:, 1:, :]
 
 
 # ------------------------------------------------------- shared attn block
@@ -191,11 +213,11 @@ def forward(params, cfg, batch):
     layers = _layers(params, cfg)
     for lo, hi, has_attn in _groups(cfg):
         for lp in layers[lo:hi]:
-            h = cm.remat(cfg, mamba_forward, lp, cfg, h)
+            h = constrain(cm.remat(cfg, mamba_forward, lp, cfg, h), batch_axes(), None, None)
         if has_attn:
             h = shared_forward(params["shared"], cfg, h, emb0, positions)
     h = cm.rmsnorm(h, params["ln_f"], cfg.norm_eps)
-    return cm.unembed(params["emb"], cfg, h), 0.0
+    return constrain(cm.unembed(params["emb"], cfg, h), batch_axes(), None, "model"), 0.0
 
 
 # ------------------------------------------------------------------ serving
@@ -214,6 +236,13 @@ def init_cache(cfg, batch_size: int, max_len: int, dtype=torch.bfloat16,
         "v": torch.zeros(kv, dtype=dtype, device=dev),
         "len": torch.zeros((batch_size,), dtype=torch.int32, device=dev),
     }
+
+
+def cache_specs(cfg) -> Dict[str, P]:
+    dp = ("data",)
+    return {"ssm": P(None, dp, "model", None, None), "conv": P(None, dp, None, "model"),
+            "k": P(None, dp, None, "model", None), "v": P(None, dp, None, "model", None),
+            "len": P(dp)}
 
 
 def prefill(params, cfg, batch, last_pos=None):

@@ -6,12 +6,33 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding as sh
+from repro_torch.distributed.sharding import P, batch_axes, constrain
 from repro_torch.kernels.moe_gmm import ops as gmm_ops
+from repro_torch.models import common as cm
+
+PRODUCTION_TP = 16  # model-axis size of the production mesh
+
+
+def mlp_specs(cfg):
+    fsdp = cm.fsdp_axis(cfg)
+    return {"wg": P(fsdp, "model"), "wu": P(fsdp, "model"), "wd": P("model", fsdp)}
+
+
+def moe_specs(cfg):
+    """EP over the model axis when the expert count divides it; otherwise
+    TP over the per-expert hidden dim (granite: 40 experts, f=512)."""
+    fsdp = cm.fsdp_axis(cfg)
+    ep = cfg.n_experts % PRODUCTION_TP == 0
+    we = P("model", fsdp, None) if ep else P(None, fsdp, "model")
+    wd = P("model", None, fsdp) if ep else P(None, "model", fsdp)
+    return {"router": P(None, None), "wg": we, "wu": we, "wd": wd}
 
 
 def mlp_forward(p, cfg, x):
     h = F.silu(x @ p["wg"]) * (x @ p["wu"])
-    return h @ p["wd"]
+    h = constrain(h, batch_axes(), None, "model")
+    return sh.rows(h @ p["wd"])
 
 
 # ------------------------------------------------------------------- MoE
@@ -46,38 +67,59 @@ def moe_forward_onehot(p, cfg, x):
     tensor; here the same slots are filled by indexing, which gives the
     same buffers (each slot holds one token or zeros) without the
     quadratic tensor.
+
+    The queue spans every token, so under a mesh the dispatch and the
+    combine run on full replicas (``sh.replicated``: the tokens, their
+    routes and the experts' outputs are gathered, and the dry-run counts
+    the collectives); the expert products run on the sharded buffers. For
+    plain tensors both are the functions themselves.
     """
     B, S, d = x.shape
     E, K = cfg.n_experts, cfg.top_k
     T = B * S
-    xt = x.reshape(T, d)
+    xt = sh.reshape(x, T, d)
     probs, gate_vals, gate_idx = _route(p, cfg, xt)              # (T, E), (T, K)
 
     cap = int(cfg.moe_capacity_factor * K * T / E + 0.999)
     cap = max(cap, 4)
+    buf, dest, keep = sh.replicated(
+        lambda xt, gv, gi: _dispatch_onehot(xt, gv, gi, E, K, cap), xt, gate_vals, gate_idx)
+    gates = (gate_vals * keep).to(x.dtype)                       # (T, K)
+    xe = constrain(buf[:E * cap].view(E, cap, d), "model", None, None)
+    ye = _experts(p, xe)                                         # (E, cap, d)
+    y = sh.replicated(lambda ye, dest, gates: _combine_onehot(ye, dest, gates, x.dtype),
+                      ye, dest, gates)
+
+    # load-balancing aux loss (Switch): E * sum_e f_e * P_e
+    kept_te = sh.replicated(lambda gi, kp: torch.zeros((T, E), device=gi.device)
+                            .scatter_(1, gi, kp.float()), gate_idx, keep)
+    aux = E * torch.sum(probs.mean(0) * kept_te.mean(0))
+    return y.reshape(B, S, d), aux
+
+
+def _dispatch_onehot(xt, gate_vals, gate_idx, E: int, K: int, cap: int):
+    """(buffers (E*cap + 1, d), dest (T*K,), keep (T, K)): kept assignments
+    go to their (expert, slot) rows, dropped ones to a dump row past the
+    buffers (no data-dependent shapes, no host sync)."""
+    T, d = xt.shape
     # position of each (token, k) assignment within its expert's queue
     onehot = F.one_hot(gate_idx, E)                              # (T, K, E)
     flat = onehot.reshape(T * K, E)
     slot = ((flat.cumsum(0) - 1) * flat).sum(-1).reshape(T, K)   # (T, K)
     keep = (slot < cap) & (gate_vals > 0)
-
-    # dispatch: kept assignments to their (expert, slot) rows, dropped ones
-    # to a dump row past the buffers (no data-dependent shapes, no host sync)
     dest = torch.where(keep, gate_idx * cap + slot, E * cap).reshape(T * K)
-    buf = x.new_zeros((E * cap + 1, d))
+    buf = xt.new_zeros((E * cap + 1, d))
     buf.index_add_(0, dest, xt.repeat_interleave(K, dim=0))
-    ye = _experts(p, buf[:E * cap].view(E, cap, d))             # (E, cap, d)
+    return buf, dest, keep
 
-    # combine: gate-weighted sum over each token's kept assignments
+
+def _combine_onehot(ye, dest, gates, dtype):
+    """Gate-weighted sum over each token's kept assignments: (T, d)."""
+    E, cap, d = ye.shape
+    T, K = gates.shape
     ye_flat = torch.cat([ye.reshape(E * cap, d), ye.new_zeros((1, d))])
     picked = ye_flat[dest].view(T, K, d)
-    gates = (gate_vals * keep).to(x.dtype)                       # (T, K)
-    y = torch.einsum("tkd,tk->td", picked.float(), gates.float()).to(x.dtype)
-
-    # load-balancing aux loss (Switch): E * sum_e f_e * P_e
-    kept_te = torch.zeros((T, E), device=x.device).scatter_(1, gate_idx, keep.float())
-    aux = E * torch.sum(probs.mean(0) * kept_te.mean(0))
-    return y.reshape(B, S, d), aux
+    return torch.einsum("tkd,tk->td", picked.float(), gates.float()).to(dtype)
 
 
 def moe_forward_sorted(p, cfg, x):
@@ -111,6 +153,10 @@ def moe_forward_sorted(p, cfg, x):
     buf = x.new_zeros((B, E * cap + 1, d))
     buf.scatter_add_(1, dest[..., None].expand(B, Tg, d), xs)
     xe = buf[:, :E * cap].reshape(B, E, cap, d).transpose(0, 1).reshape(E, B * cap, d)
+    # E % TP == 0: EP, experts over "model". Otherwise expert-TP: tokens stay
+    # data-resident and every device applies all experts with model-sharded
+    # hidden dims (E over a non-dividing axis would replicate the buffers)
+    xe = constrain(xe, "model" if E % PRODUCTION_TP == 0 else None, "data", None)
 
     ye = _experts(p, xe)                                         # (E, B*cap, d)
     ye = ye.reshape(E, B, cap, d).transpose(0, 1).reshape(B, E * cap, d)

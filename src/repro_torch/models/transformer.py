@@ -12,6 +12,7 @@ from typing import Dict, List, Tuple
 
 import torch
 
+from repro_torch.distributed.sharding import P, batch_axes, constrain
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import common as cm
@@ -46,6 +47,17 @@ def param_shapes(cfg) -> Dict[str, Tuple[int, ...]]:
                   "layers/mlp/wd": (L, f, d)})
     s["ln_f/scale"] = (d,)
     return s
+
+
+def param_specs(cfg) -> Dict[str, P]:
+    """Flat param keys (as ``param_shapes``) -> partition specs."""
+    layer = {"ln1": cm.NORM_SPECS, "attn": attn.attn_specs(cfg), "ln2": cm.NORM_SPECS}
+    if cfg.family == "moe":
+        layer["moe"] = mlp_mod.moe_specs(cfg)
+    else:
+        layer["mlp"] = mlp_mod.mlp_specs(cfg)
+    return cm.flatten({"emb": cm.embedding_specs(cfg), "layers": cm.stacked_specs(layer),
+                       "ln_f": cm.NORM_SPECS})
 
 
 FP32_KEYS = ("layers/moe/router",)   # fp32 in every model, as in the JAX init
@@ -130,12 +142,14 @@ def forward(params, cfg, batch):
     """Teacher-forced logits (B, S, Vp) (VLM: (B, V + S, Vp)) and the aux
     loss summed over layers (0.0 for dense)."""
     h, positions, mrope_pos = _positions_and_embeds(params, cfg, batch)
+    h = constrain(h, batch_axes(), None, None)
     aux = 0.0
     for lp in _layers(params, cfg):
         h, a = cm.remat(cfg, layer_forward, lp, cfg, h, positions, mrope_pos)
+        h = constrain(h, batch_axes(), None, None)
         aux = aux + a
     h = cm.rmsnorm(h, params["ln_f"], cfg.norm_eps)
-    return cm.unembed(params["emb"], cfg, h), aux
+    return constrain(cm.unembed(params["emb"], cfg, h), batch_axes(), None, "model"), aux
 
 
 # ------------------------------------------------------------------ serving
@@ -150,6 +164,16 @@ def init_cache(cfg, batch_size: int, max_len: int, dtype=torch.bfloat16,
             "len": torch.zeros((batch_size,), dtype=torch.int32, device=dev)}
 
 
+def cache_specs(cfg) -> Dict[str, P]:
+    """The cache's specs: slots over "data", KV heads over "model", or the
+    sequence over "model" with ``kv_seq_shard`` (when the KV heads cannot
+    use it)."""
+    dp = ("data",)
+    kv = P(None, dp, "model", None, None) if cfg.kv_seq_shard \
+        else P(None, dp, None, "model", None)
+    return {"k": kv, "v": kv, "len": P(dp)}
+
+
 def prefill(params, cfg, batch, last_pos=None):
     """Run the prompt; returns (logits at the last prompt position (B, Vp),
     cache). ``last_pos`` (B,) overrides the sampled position for
@@ -159,6 +183,7 @@ def prefill(params, cfg, batch, last_pos=None):
     ks, vs = [], []
     for lp in _layers(params, cfg):
         h, (k, v) = layer_prefill(lp, cfg, h, positions, mrope_pos)
+        h = constrain(h, batch_axes(), None, None)
         ks.append(k)
         vs.append(v)
     B, S = h.shape[:2]

@@ -19,6 +19,8 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.distributed import sharding as sh
+from repro_torch.distributed.sharding import P, batch_axes, constrain
 from repro_torch.kernels.common import resolve_device
 from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.models import attention as attn
@@ -53,6 +55,16 @@ def param_shapes(cfg) -> Dict[str, Tuple[int, ...]]:
     return s
 
 
+def param_specs(cfg) -> Dict[str, P]:
+    """Flat param keys (as ``param_shapes``) -> partition specs."""
+    enc = {"ln1": cm.NORM_SPECS, "attn": attn.attn_specs(cfg), "ln2": cm.NORM_SPECS,
+           "mlp": mlp_mod.mlp_specs(cfg)}
+    dec = dict(enc, ln_x=cm.NORM_SPECS, xattn=attn.attn_specs(cfg))
+    return cm.flatten({"emb": cm.embedding_specs(cfg), "enc_layers": cm.stacked_specs(enc),
+                       "dec_layers": cm.stacked_specs(dec), "ln_enc": cm.NORM_SPECS,
+                       "ln_f": cm.NORM_SPECS})
+
+
 def param_dtype(key: str, dtype: torch.dtype) -> torch.dtype:
     """Every param takes the model's weight dtype."""
     return dtype
@@ -69,10 +81,12 @@ def encode(params, cfg, frames):
     """frames: (B, F, d) stub embeddings -> encoder states (B, F, d)."""
     h = frames + cm.sinusoidal_pos(frames.shape[1], cfg.d_model,
                                    device=frames.device).to(frames.dtype)[None]
+    h = constrain(h, batch_axes(), None, None)
     for lp in cm.layer_views(params["enc_layers"], cfg.n_enc_layers):
         h = h + attn.attn_forward(lp["attn"], cfg, cm.rmsnorm(h, lp["ln1"], cfg.norm_eps),
                                   causal=False)
         h = h + mlp_mod.mlp_forward(lp["mlp"], cfg, cm.rmsnorm(h, lp["ln2"], cfg.norm_eps))
+        h = constrain(h, batch_axes(), None, None)
     return cm.rmsnorm(h, params["ln_enc"], cfg.norm_eps)
 
 
@@ -85,7 +99,7 @@ def _cross_kv(lp, cfg, enc):
     k, v = enc @ p["wk"], enc @ p["wv"]
     if "bk" in p:
         k, v = k + p["bk"], v + p["bv"]
-    return k.reshape(B, F, KH, hd), v.reshape(B, F, KH, hd)
+    return sh.reshape(k, B, F, KH, hd), sh.reshape(v, B, F, KH, hd)
 
 
 def _embed(params, cfg, tokens):
@@ -94,9 +108,11 @@ def _embed(params, cfg, tokens):
                                  device=tokens.device).to(h.dtype)[None]
 
 
-def _decoder(params, cfg, batch):
+def _decoder(params, cfg, batch, constrained=False):
     """Encoder, then the decoder over the prompt: (h (B, S, d), the self K/V
-    and cross K/V of each layer)."""
+    and cross K/V of each layer). ``constrained``: each layer's output is
+    constrained (the forward's sites; the prefill has none, as in the JAX
+    package)."""
     enc = encode(params, cfg, batch["frames"])
     tokens = batch["tokens"]
     h = _embed(params, cfg, tokens)
@@ -104,6 +120,8 @@ def _decoder(params, cfg, batch):
     kvs = []
     for lp in cm.layer_views(params["dec_layers"], cfg.n_layers):
         h, kv = cm.remat(cfg, _dec_layer, lp, cfg, h, enc, positions)
+        if constrained:
+            h = constrain(h, batch_axes(), None, None)
         kvs.append(kv)
     return h, kvs
 
@@ -122,9 +140,9 @@ def _dec_layer(lp, cfg, h, enc, positions):
 
 def forward(params, cfg, batch):
     """batch: frames (B, F, d), tokens (B, S) -> (logits (B, S, Vp), aux 0.0)."""
-    h, _ = _decoder(params, cfg, batch)
+    h, _ = _decoder(params, cfg, batch, constrained=True)
     h = cm.rmsnorm(h, params["ln_f"], cfg.norm_eps)
-    return cm.unembed(params["emb"], cfg, h), 0.0
+    return constrain(cm.unembed(params["emb"], cfg, h), batch_axes(), None, "model"), 0.0
 
 
 # ------------------------------------------------------------------ serving
@@ -137,6 +155,14 @@ def init_cache(cfg, batch_size: int, max_len: int, dtype=torch.bfloat16,
     return {"k": zeros(max_len), "v": zeros(max_len),
             "xk": zeros(cfg.enc_seq), "xv": zeros(cfg.enc_seq),
             "len": torch.zeros((batch_size,), dtype=torch.int32, device=dev)}
+
+
+def cache_specs(cfg) -> Dict[str, P]:
+    dp = ("data",)
+    kv = P(None, dp, "model", None, None) if cfg.kv_seq_shard \
+        else P(None, dp, None, "model", None)
+    return {"k": kv, "v": kv, "xk": P(None, dp, None, "model", None),
+            "xv": P(None, dp, None, "model", None), "len": P(dp)}
 
 
 def prefill(params, cfg, batch, last_pos=None):
@@ -173,8 +199,8 @@ def decode_step(params, cfg, cache, tokens):
         q = cm.rmsnorm(h, lp["ln_x"], cfg.norm_eps) @ p["wq"]
         if "bq" in p:
             q = q + p["bq"]
-        cx = da_ops.decode_attention(q.reshape(B, H, hd), cache["xk"][i], cache["xv"][i], flen)
-        h = h + cx.reshape(B, -1) @ p["wo"]
+        cx = da_ops.decode_attention(sh.reshape(q, B, H, hd), cache["xk"][i], cache["xv"][i], flen)
+        h = h + sh.rows(sh.reshape(cx, B, -1) @ p["wo"])
         h = h + mlp_mod.mlp_forward(lp["mlp"], cfg, cm.rmsnorm(h, lp["ln2"], cfg.norm_eps))
     logits = cm.unembed(params["emb"], cfg, cm.rmsnorm(h, params["ln_f"], cfg.norm_eps))
     return logits, dict(cache, len=lengths + 1)

@@ -20,6 +20,8 @@ from typing import Dict, List, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding as sh
+from repro_torch.distributed.sharding import P, batch_axes, constrain
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models import common as cm
 
@@ -91,6 +93,22 @@ def param_shapes(cfg) -> Dict[str, Tuple[int, ...]]:
     return s
 
 
+def param_specs(cfg) -> Dict[str, P]:
+    """Flat param keys (as ``param_shapes``) -> partition specs."""
+    fsdp = cm.fsdp_axis(cfg)
+    tree = {"emb": cm.embedding_specs(cfg), "mlstm": cm.stacked_specs({
+        "ln": cm.NORM_SPECS, "up": P(fsdp, "model"), "conv_w": P(None, "model"),
+        "conv_b": P("model"), "wq": P(None, "model"), "wk": P(None, "model"),
+        "wv": P(None, "model"), "w_if": P("model", None), "b_if": P(None),
+        "norm": {"scale": P("model")}, "down": P("model", fsdp)})}
+    if n_slstm(cfg):
+        tree["slstm"] = cm.stacked_specs({"ln": cm.NORM_SPECS, "W": P(None, "model"),
+                                          "r": P(None, None), "b": P(None),
+                                          "out": P(None, None)})
+    tree["ln_f"] = cm.NORM_SPECS
+    return cm.flatten(tree)
+
+
 # the gate projections and the sLSTM's recurrence: fp32 in a bf16 model
 FP32_KEYS = ("mlstm/w_if", "mlstm/b_if", "slstm/W", "slstm/r", "slstm/b")
 
@@ -135,14 +153,14 @@ def _mlstm_project(p, cfg, x_in, conv_window):
     xc = conv_window(x)
     gates = xc.to(p["w_if"].dtype) @ p["w_if"] + p["b_if"]
     return (xc @ p["wq"], xc @ p["wk"], x @ p["wv"], gates[..., :H],
-            F.logsigmoid(gates[..., H:]), z, x)
+            sh.replicated(F.logsigmoid, gates[..., H:]), z, x)
 
 
 def _heads(cfg, q, k, v):
     """(..., di) -> (..., H, dh) in the state dtype for q, k (scaled by
     1/sqrt(dh)) and v."""
     H, dh = cfg.n_heads, cfg.mlstm_d_inner // cfg.n_heads
-    split = lambda t: t.reshape(*t.shape[:-1], H, dh).to(cm.wide(t.dtype))   # noqa: E731
+    split = lambda t: sh.reshape(t, *t.shape[:-1], H, dh).to(cm.wide(t.dtype))   # noqa: E731
     return split(q), split(k) / (dh ** 0.5), split(v)
 
 
@@ -161,9 +179,9 @@ def _mlstm_chunked(qh, kh, vh, log_i, log_f):
     t = torch.arange(Tc, device=qh.device)
     causal = (t[:, None] >= t[None, :])[None, :, :, None]           # (1,T,U,1)
     outs = []
-    for lo in range(0, S, Tc):
-        qc, kc, vc = qh[:, lo:lo + Tc], kh[:, lo:lo + Tc], vh[:, lo:lo + Tc]
-        lic, lfc = log_i[:, lo:lo + Tc], log_f[:, lo:lo + Tc]
+    # the chunks as views cut by one split each (their gradient gathers in
+    # one cat, not a full-length tensor per chunk)
+    for qc, kc, vc, lic, lfc in zip(*(t.split(Tc, dim=1) for t in (qh, kh, vh, log_i, log_f))):
         Fc = torch.cumsum(lfc, dim=1)                                # (B,T,H)
         D = Fc[:, :, None, :] - Fc[:, None, :, :] + lic[:, None, :, :]
         D = torch.where(causal, D, -torch.inf)                       # (B,T,U,H)
@@ -192,9 +210,9 @@ def _mlstm_chunked(qh, kh, vh, log_i, log_f):
 
 
 def _mlstm_out(p, cfg, h, hh, z):
-    y = hh.reshape(*h.shape[:-1], cfg.mlstm_d_inner).to(h.dtype)
+    y = sh.reshape(hh, *h.shape[:-1], cfg.mlstm_d_inner).to(h.dtype)
     y = cm.rmsnorm(y, p["norm"], cfg.norm_eps) * F.silu(z)
-    return h + y @ p["down"]
+    return h + sh.rows(y @ p["down"])
 
 
 def mlstm_forward(p, cfg, h, return_state=False):
@@ -210,7 +228,12 @@ def mlstm_forward(p, cfg, h, return_state=False):
 
     q, k, v, log_i, log_f, z, x_raw = _mlstm_project(
         p, cfg, cm.rmsnorm(h, p["ln"], cfg.norm_eps), conv)
-    hh, (C, n, m) = _mlstm_chunked(*_heads(cfg, q, k, v), log_i, log_f)
+    # the chunk loop's operands with the heads over "model" and the sequence
+    # whole (a no-op on plain tensors)
+    dp = batch_axes()
+    qh, kh, vh = (constrain(t, dp, None, "model", None) for t in _heads(cfg, q, k, v))
+    log_i, log_f = (constrain(t, dp, None, "model") for t in (log_i, log_f))
+    hh, (C, n, m) = _mlstm_chunked(qh, kh, vh, log_i, log_f)
     out = _mlstm_out(p, cfg, h, hh, z)
     if not return_state:
         return out
@@ -251,7 +274,7 @@ def _slstm_cell(p, pre, state):
     c, n, hs, m = state
     pre = pre + (p["r"][None] * hs[:, None, :]).flatten(1)      # r[g] * hs per gate g
     i_p, f_p, z_p, o_p = pre.chunk(4, dim=-1)
-    log_f = F.logsigmoid(f_p)
+    log_f = sh.replicated(F.logsigmoid, f_p)   # a DTensor has no rule for its backward
     m_new = torch.maximum(log_f + m, i_p)
     i_s = torch.exp(i_p - m_new)
     f_s = torch.exp(log_f + m - m_new)
@@ -269,12 +292,16 @@ def slstm_forward(p, cfg, h):
     """Sequence forward from the empty state, one cell step per token. h
     (B,S,d). Returns (out, the state after the last token)."""
     B, S, d = h.shape
-    pre = _slstm_pre(p, cfg, h)
+    # the sequence whole: the loop takes one token at a time (a no-op on
+    # plain tensors)
+    pre = constrain(_slstm_pre(p, cfg, h), batch_axes(), None, "model")
     zeros = pre.new_zeros((B, d))
     state = (zeros, zeros, zeros, pre.new_full((B, d), M_INIT))
     ys = []
-    for t in range(S):
-        state = _slstm_cell(p, pre[:, t], state)
+    # the tokens as views cut by one unbind (their gradient gathers in one
+    # stack, not a full-length tensor per token)
+    for pre_t in pre.unbind(1):
+        state = _slstm_cell(p, pre_t, state)
         ys.append(state[2])
     y = torch.stack(ys, dim=1).to(h.dtype)
     return h + y @ p["out"], state
@@ -296,10 +323,11 @@ def forward(params, cfg, batch):
     for kind, i in _order(cfg):
         if kind == "mlstm":
             h = cm.remat(cfg, mlstm_forward, layers[kind][i], cfg, h)
+            h = constrain(h, batch_axes(), None, None)
         else:
             h, _ = slstm_forward(layers[kind][i], cfg, h)
     h = cm.rmsnorm(h, params["ln_f"], cfg.norm_eps)
-    return cm.unembed(params["emb"], cfg, h), 0.0
+    return constrain(cm.unembed(params["emb"], cfg, h), batch_axes(), None, "model"), 0.0
 
 
 # ------------------------------------------------------------------ serving
@@ -333,6 +361,14 @@ def init_cache(cfg, batch_size: int, max_len: int, dtype=torch.bfloat16,
     }
 
 
+def cache_specs(cfg) -> Dict[str, P]:
+    dp = ("data",)
+    return {"mC": P(None, dp, "model", None, None), "mn": P(None, dp, "model", None),
+            "mm": P(None, dp, "model"), "conv": P(None, dp, None, "model"),
+            "sc": P(None, dp, None), "sn": P(None, dp, None),
+            "sh": P(None, dp, None), "sm": P(None, dp, None), "len": P(dp)}
+
+
 def prefill(params, cfg, batch, last_pos=None):
     """Run the prompt; returns (logits at the last prompt position (B, Vp),
     cache). A recurrent state absorbs every token it is given, so the
@@ -341,6 +377,8 @@ def prefill(params, cfg, batch, last_pos=None):
     B, S = tokens.shape
     h = cm.embed_tokens(params["emb"], tokens)
     cache = init_cache(cfg, B, S, h.dtype, h.device)
+    if sh.is_dtensor(h):       # the dry-run's prefill: the cache laid out by its specs
+        cache = sh.distribute(cache, cache_specs(cfg))
     layers = _layers(params, cfg)
     for kind, i in _order(cfg):
         if kind == "mlstm":

@@ -6,7 +6,8 @@ the step an int32 scalar, as there; the update rounds each param through
 fp32 and back to its dtype, as there. Unlike the JAX version the update
 works IN PLACE on the params and moments (no second copy of a 40 GB
 training state on the card), a chunk of elements at a time, so that its
-fp32 temporaries stay small.
+fp32 temporaries stay small. On DTensors (the dry-run's sharded step) each
+rank updates the shards it holds, with the gradient norm summed over ranks.
 """
 from __future__ import annotations
 
@@ -15,6 +16,8 @@ import math
 
 import torch
 
+from repro_torch.distributed import sharding as sh
+from repro_torch.distributed.sharding import P
 from repro_torch.models import common as cm
 
 CHUNK = 1 << 24   # elements per step of the in-place update (64 MB of fp32 temporaries)
@@ -58,14 +61,25 @@ def init_opt_state(params):
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
+def opt_state_specs(param_specs):
+    """The moments take their params' specs (so fsdp archs get sharded
+    optimizer state); the step is replicated. Flat keys, as
+    ``cm.flatten(init_opt_state(params))`` gives them."""
+    out = {f"{name}/{k}": s for name in ("m", "v") for k, s in param_specs.items()}
+    out["step"] = P()
+    return out
+
+
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of every leaf's squares, in fp32."""
     return torch.sqrt(sum(_sumsq(x) for x in cm.flatten(tree).values()))
 
 
 def _sumsq(x):
-    """A leaf's sum of squares in fp32, a chunk at a time."""
-    return sum(torch.sum(torch.square(c.float())) for c in x.reshape(-1).split(CHUNK))
+    """A leaf's sum of squares in fp32, a chunk at a time (of a DTensor:
+    over its local shard, then summed over the ranks that shard it)."""
+    return sh.shard_sum(x, lambda t: sum(torch.sum(torch.square(c.float()))
+                                         for c in t.reshape(-1).split(CHUNK)))
 
 
 @torch.no_grad()
@@ -75,7 +89,7 @@ def adamw_update(oc: OptConfig, params, grads, opt_state):
     metrics) with the new step, ``grad_norm``, ``lr`` and ``grad_sq_min``,
     the smallest sum of squares of a gradient leaf (0 where a param got no
     gradient), all 0-d tensors."""
-    step = opt_state["step"] + 1
+    step = sh.local(opt_state["step"]) + 1
     sumsq = [_sumsq(g) for g in cm.flatten(grads).values()]
     gnorm = torch.sqrt(sum(sumsq))
     scale = torch.clamp(oc.grad_clip / (gnorm + 1e-9), max=1.0)
@@ -88,7 +102,8 @@ def adamw_update(oc: OptConfig, params, grads, opt_state):
     flat_p, flat_g = cm.flatten(params), cm.flatten(grads)
     flat_m, flat_v = cm.flatten(opt_state["m"]), cm.flatten(opt_state["v"])
     for key, p in flat_p.items():
-        g, m, v = flat_g[key], flat_m[key], flat_v[key]
+        # elementwise: each rank updates the shard it holds of a DTensor
+        p, g, m, v = (sh.local(t) for t in (p, flat_g[key], flat_m[key], flat_v[key]))
         if not all(t.is_contiguous() for t in (p, g, m, v)):
             raise ValueError(f"adamw_update: {key}: params, grads and moments must be "
                              "contiguous (they are updated in place through flat views)")

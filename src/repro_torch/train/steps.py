@@ -12,6 +12,7 @@ from typing import Dict
 
 import torch
 
+from repro_torch.distributed import sharding as sh
 from repro_torch.models import api as model_api
 from repro_torch.models import common as cm
 from repro_torch.train import optimizer as opt
@@ -47,7 +48,9 @@ def make_train_step(cfg, oc: opt.OptConfig):
         with torch.enable_grad():
             loss, metrics = loss_fn(params, cfg, batch)
             grads = torch.autograd.grad(loss, list(flat.values()))
-        grads = cm.nest({k: g.contiguous() for k, g in zip(flat, grads)})
+        # a DTensor gradient takes its param's layout (the gradient sync of
+        # a sharded step); a plain one is as it was
+        grads = cm.nest({k: sh.like(g, flat[k]).contiguous() for k, g in zip(flat, grads)})
         params, opt_state, om = opt.adamw_update(oc, params, grads, opt_state)
         metrics = {k: v.detach() if torch.is_tensor(v) else v for k, v in metrics.items()}
         return params, opt_state, dict(metrics, loss=loss.detach(), **om)

@@ -6,6 +6,8 @@ import pathlib
 import subprocess
 import sys
 
+import pytest
+
 SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
 
 _PROBE = """
@@ -42,3 +44,25 @@ def test_no_source_names_jax_or_repro():
             for m in mods:
                 root = m.split(".")[0]
                 assert root not in ("jax", "jaxlib", "repro"), (path, m)
+
+
+_ONE = """
+import importlib, sys
+importlib.import_module(sys.argv[1])
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "repro" or m.startswith("repro."))
+assert not bad, bad
+"""
+
+
+@pytest.mark.parametrize("module", ["repro_torch.distributed.sharding", "repro_torch.launch.mesh",
+                                    "repro_torch.launch.hlo_analysis",
+                                    "repro_torch.launch.dryrun"])
+def test_distributed_and_dryrun_modules_load_no_jax_and_no_repro(module):
+    """The meshes, the sharding layer and the dry-run, each alone in a
+    fresh process (the dry-run's counterpart in the JAX package forces 512
+    host devices on JAX at import)."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", _ONE, module], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
