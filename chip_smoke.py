@@ -135,6 +135,22 @@ Phases; any failure exits non-zero and no phase's failure is caught:
      beside its phase-4 serving peak; and three production-mesh cells
      (qwen2-1.5b train_4k on 16x16, dbrx-132b train_4k on 2x16x16,
      zamba2-1.2b long_500k on 16x16), each record printed.
+  7. control plane (phase_control_plane): Coral's two-stage optimiser on
+     the card, no kernel of its own. Every ProfileTable row of the six
+     paper models x EXT_CONFIGS x both phases x S = 1..8 built on the card
+     equals the port's CPU row bit for bit; the core library (CORE_MODELS x
+     CORE_CONFIGS, n_max=6, rho=12: 28,074 templates) and llama3-70b decode
+     on EXT_CONFIGS (n_max=6) built on the card equal the port's CPU builds
+     (keys, counts, placements, throughputs), the library's columns and the
+     placement cache's rows on the card, each build's device and host
+     seconds printed; allocate on the card-built and on the CPU-built core
+     library (availability from gen_availability, seeded, and a scarce
+     case; demand 20x each trace's mean): same ok, unmet and solve path,
+     cost within 1e-9 and objective within 5e-4 relative, the instances
+     compared and held to the availability and demand, the solve seconds
+     split into device, assembly and solver; the quickstart and
+     templates_for_archs examples on the card against their CPU runs. The
+     CPU side runs in a child process (``--control-cpu``) beside the card's.
 The line before the last is a JSON object with every kernel's numbers
 (before_ms: the earlier kernel on the same inputs: the CUDA-core kernel of
 the forward kernels, the earlier copy-then-gmm path of dx and dw, the two-sweep
@@ -2266,6 +2282,204 @@ def phase_mesh(runs, train_peaks):
         print(f"[dryrun] {json.dumps(rec)}")
 
 
+CONTROL_DEMAND_X = 20.0                            # demand: 20x each trace's mean
+CONTROL_SCARCITY = {"L40S": 0.15, "A10G": 0.3}     # the scarce allocation case
+
+
+def _control_models():
+    from repro_torch.core import modelspec as ms
+    from repro_torch.traces.workloads import workload_stats
+    models = [ms.PAPER_MODELS[n] for n in ms.CORE_MODELS]
+    return models, {m.name: workload_stats(m.trace) for m in models}
+
+
+def _tset(temps):
+    """Everything a template holds, in order (bit-exact comparison)."""
+    from dataclasses import astuple
+    return [(t.model, t.phase, t.slo_ms, t.counts, astuple(t.placement), t.throughput)
+            for t in temps]
+
+
+def _control_allocations(lib):
+    """allocate on ``lib`` for CORE_REGIONS: availability from
+    gen_availability (seeded) and a scarce case; demand 20x each trace's
+    mean. Returns {case: (Allocation, availability, demands)}."""
+    from repro_torch.core import allocator as al, hardware as hw
+    from repro_torch.traces.workloads import default_base_availability, gen_availability
+    models, wls = _control_models()
+    base = default_base_availability(hw.CORE_CONFIGS, abundance=10.0)
+    demands = []
+    for m in models:
+        wl = wls[m.name]
+        demands += [al.Demand(m.name, "prefill", CONTROL_DEMAND_X * wl.avg_prompt),
+                    al.Demand(m.name, "decode", CONTROL_DEMAND_X * wl.avg_output)]
+    out = {}
+    for case, scarcity in (("seeded", None), ("scarce", CONTROL_SCARCITY)):
+        avail = gen_availability(hw.CORE_REGIONS, hw.CORE_CONFIGS, 1, base, seed=0,
+                                 scarcity=scarcity)[0]
+        out[case] = (al.allocate(al.AllocProblem(hw.CORE_REGIONS, hw.CORE_CONFIGS, avail,
+                                                 demands, lib)), avail, demands)
+    return out
+
+
+def _alloc_summary(a):
+    return {"ok": a.ok, "unmet": sorted(a.unmet), "solve_path": a.solve_path,
+            "cost": a.cost_per_hour, "objective": a.objective, "n_vars": a.n_vars,
+            "instances": sorted(a.instances.items())}
+
+
+def _control_builds(device):
+    """The builds phase 7 compares: the core library and llama3-70b decode
+    on EXT_CONFIGS, on ``device``; returns the libraries' template sets,
+    the heavy set and each build's seconds and stats."""
+    from repro_torch.core import hardware as hw, modelspec as ms, templates as tp
+    from repro_torch.traces.workloads import workload_stats
+    models, wls = _control_models()
+    t0 = time.time()
+    lib = tp.build_library(models, hw.CORE_CONFIGS, wls, n_max=6, rho=12.0, device=device)
+    lib_s = time.time() - t0
+    heavy = ms.PAPER_MODELS["llama3-70b"]
+    t0 = time.time()
+    temps, stats = tp.generate_templates(heavy, "decode", hw.EXT_CONFIGS,
+                                         workload_stats(heavy.trace), n_max=6, device=device)
+    return lib, lib_s, temps, stats, time.time() - t0
+
+
+def _control_cpu_side(out_path):
+    """The CPU half of phase 7, in a child process: the port's CPU builds,
+    allocations and examples, pickled for the parent to compare."""
+    import io
+    import pickle
+    torch.set_num_threads(6)
+    lib, lib_s, temps, stats, heavy_s = _control_builds("cpu")
+    allocs = {case: _alloc_summary(a) for case, (a, _, _) in _control_allocations(lib).items()}
+    from repro_torch.examples import quickstart, templates_for_archs
+    with contextlib.redirect_stdout(io.StringIO()):
+        _, qs = quickstart.run("cpu")
+        archs = templates_for_archs.run("cpu")
+    with open(out_path, "wb") as f:
+        pickle.dump({"lib": {k: _tset(v) for k, v in lib.templates.items()}, "lib_s": lib_s,
+                     "heavy": _tset(temps), "heavy_s": heavy_s, "heavy_combos": stats["combos"],
+                     "allocs": allocs, "quickstart": _alloc_summary(qs),
+                     "archs": {k: _tset(v) for k, v in archs.items()}}, f)
+
+
+def _check_allocation(what, a, want, avail, demands):
+    """Phase 7's allocation checks: the CPU-built library's result
+    (``want``, a summary) and the reference's feasibility check."""
+    got = _alloc_summary(a)
+    for k in ("ok", "unmet", "solve_path", "n_vars"):
+        assert got[k] == want[k], (what, k, got[k], want[k])
+    assert abs(got["cost"] - want["cost"]) <= 1e-9 * abs(want["cost"]), (what, got, want)
+    assert abs(got["objective"] - want["objective"]) <= 5e-4 * abs(want["objective"]), what
+    used = {}
+    for (region, key), n in a.instances.items():
+        for c, k in a.templates[key].counts:
+            used[(region, c)] = used.get((region, c), 0) + k * n
+    assert all(v <= avail.get(k, 0) for k, v in used.items()), (what, used)
+    for d in demands:
+        served = a.served(d.model, d.phase)
+        assert served + a.unmet.get((d.model, d.phase), 0.0) >= d.tokens_per_s - 1e-3, what
+    return got["instances"] == want["instances"]
+
+
+def phase_control_plane():
+    """7. The two-stage optimiser on the card against its CPU run."""
+    import io
+    import pickle
+    import tempfile
+    from repro_torch.core import hardware as hw, modelspec as ms, placement as pl
+    from repro_torch.core import profiles as pr, templates as tp
+    from repro_torch.examples import quickstart, templates_for_archs
+    from repro_torch.traces.workloads import workload_stats
+    card = _card()
+    out = Path(tempfile.mkdtemp(prefix="control_")) / "cpu.pkl"
+    child = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--control-cpu",
+                              str(out)])
+    try:
+        # (1) profile rows: card vs CPU, bit for bit
+        t0 = time.time()
+        n = 0
+        for m in ms.PAPER_MODELS.values():
+            wl = workload_stats(m.trace)
+            for phase in ("prefill", "decode"):
+                slo = m.prefill_slo_ms if phase == "prefill" else m.decode_slo_ms
+                on_card = pr.ProfileTable(m, phase, slo, wl, device="cuda")
+                on_cpu = pr.ProfileTable(m, phase, slo, wl, device="cpu")
+                for c in hw.EXT_CONFIGS:
+                    for S in range(1, 9):
+                        got = on_card.table(c, S)
+                        assert got.device.type == "cuda" and got.dtype == torch.float64
+                        assert torch.equal(got.cpu(), on_cpu.table(c, S)), (m.name, phase, c.name, S)
+                        n += 1
+        print(f"[control] profile rows: {n} rows (6 models x 20 configs x 2 phases x S 1..8), "
+              f"card == CPU bit for bit, {time.time() - t0:.2f}s [{card}]", flush=True)
+        # (2), (3) the core library and the heavy pair on the card
+        torch.cuda.synchronize()
+        lib, lib_s, temps, stats, heavy_s = _control_builds("cuda")
+        for key, st in lib.stats.items():
+            cols = lib.columns(*key)
+            assert cols.usage.device.type == "cuda" and cols.throughput.device.type == "cuda"
+            print(f"[control] core library {key[0]} {key[1]}: {st['combos']} combos -> "
+                  f"{st['templates']} templates, device {st['device_seconds']:.3f}s, "
+                  f"host {st['host_seconds']:.3f}s [{card}]")
+        # the placement cache's rows on the card: one pair again, through
+        # a cache made here
+        m0 = ms.PAPER_MODELS[ms.CORE_MODELS[0]]
+        wl0 = workload_stats(m0.trace)
+        pt0 = pr.ProfileTable(m0, "decode", m0.decode_slo_ms, wl0, device="cuda")
+        by_name = {c.name: c for c in hw.CORE_CONFIGS}
+        cache = pl.PlacementCache(lambda nm, S: pt0.table(by_name[nm], S), m0.n_layers,
+                                  device="cuda")
+        again, _ = tp.generate_templates(m0, "decode", hw.CORE_CONFIGS, wl0, cache=cache)
+        assert cache._rows and all(r.device.type == "cuda" for r in cache._rows.values())
+        assert _tset(again) == _tset(lib.get(m0.name, "decode"))
+        print(f"[control] core library on the card: {lib.size} templates in {lib_s:.2f}s "
+              f"[{card}]")
+        print(f"[control] llama3-70b decode on EXT_CONFIGS (n_max=6): {stats['combos']} combos "
+              f"-> {len(temps)} templates in {heavy_s:.2f}s: device "
+              f"{stats['device_seconds']:.3f}s, host (Placement and ServingTemplate objects) "
+              f"{stats['host_seconds']:.3f}s [{card}]", flush=True)
+        # (4) allocations on the card-built library
+        card_allocs = _control_allocations(lib)
+        # (5) the examples on the card
+        with contextlib.redirect_stdout(io.StringIO()) as buf:
+            _, qs = quickstart.run("cuda")
+            archs = templates_for_archs.run("cuda")
+        print("[control] quickstart on the card:\n" + "\n".join(
+            "[control]   " + line for line in buf.getvalue().splitlines()))
+        assert child.wait(timeout=900) == 0, "the CPU side of phase 7 failed"
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    with open(out, "rb") as f:
+        cpu = pickle.load(f)
+    assert {k: _tset(v) for k, v in lib.templates.items()} == cpu["lib"]
+    assert lib.size == 28074, lib.size
+    assert _tset(temps) == cpu["heavy"] and stats["combos"] == cpu["heavy_combos"]
+    print(f"[control] core library card == CPU bit for bit ({lib.size} templates; CPU "
+          f"{cpu['lib_s']:.2f}s); llama3-70b decode card == CPU ({len(temps)} templates; "
+          f"CPU {cpu['heavy_s']:.2f}s, 6 threads)")
+    for case, (a, avail, demands) in card_allocs.items():
+        same = _check_allocation(case, a, cpu["allocs"][case], avail, demands)
+        print(f"[control] allocate {case}: ok={a.ok} cost ${a.cost_per_hour:.4f}/h "
+              f"objective {a.objective:.6f} path={a.solve_path} vars={a.n_vars} "
+              f"unmet={sorted(a.unmet) or 'none'} instances equal to CPU's: {same}; "
+              f"seconds: device {a.device_seconds:.4f}, assembly "
+              f"{a.build_seconds - a.device_seconds:.4f}, solver ({a.solve_path}) "
+              f"{a.solver_seconds:.4f}, extract {a.extract_seconds:.4f}, total "
+              f"{a.solve_seconds:.4f} [{card}]")
+    got = _alloc_summary(qs)
+    for k in ("ok", "unmet", "solve_path", "n_vars", "instances"):
+        assert got[k] == cpu["quickstart"][k], ("quickstart", k)
+    assert abs(got["cost"] - cpu["quickstart"]["cost"]) <= 1e-9 * abs(got["cost"])
+    assert {k: _tset(v) for k, v in archs.items()} == cpu["archs"]
+    print(f"[control] examples on the card equal their CPU runs: quickstart cost "
+          f"${qs.cost_per_hour:.4f}/h ({qs.solve_path}), templates_for_archs "
+          f"{sum(len(v) for v in archs.values())} templates over {len(archs)} (arch, phase)")
+
+
 @contextlib.contextmanager
 def _timed(what):
     """Prints the wall time of the phase run inside the ``with``."""
@@ -2275,6 +2489,10 @@ def _timed(what):
 
 
 def main():
+    if sys.argv[1:2] == ["--control-cpu"]:
+        sys.path.insert(0, str(ROOT / "src"))
+        _control_cpu_side(sys.argv[2])
+        return
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; nothing was run")
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
@@ -2319,6 +2537,8 @@ def main():
             trained[arch], train_peaks[arch] = phase_train(arch)
     with _timed("6 mesh and dry-run"):
         phase_mesh(runs, train_peaks)
+    with _timed("7 control plane"):
+        phase_control_plane()
     # each kernel's launches on its path's run: the forward kernels on the
     # poisson5 serving run (granite's runs attention and the grouped matmul,
     # zamba2's the SSD scan), the backward ones on granite's train run, the

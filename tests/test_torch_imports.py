@@ -57,11 +57,15 @@ assert not bad, bad
 
 @pytest.mark.parametrize("module", ["repro_torch.distributed.sharding", "repro_torch.launch.mesh",
                                     "repro_torch.launch.hlo_analysis",
-                                    "repro_torch.launch.dryrun"])
+                                    "repro_torch.launch.dryrun",
+                                    "repro_torch.core.allocator",
+                                    "repro_torch.core.templates"])
 def test_distributed_and_dryrun_modules_load_no_jax_and_no_repro(module):
-    """The meshes, the sharding layer and the dry-run, each alone in a
-    fresh process (the dry-run's counterpart in the JAX package forces 512
-    host devices on JAX at import)."""
+    """The meshes, the sharding layer, the dry-run and the control plane's
+    allocator and template generator, each alone in a fresh process (the
+    dry-run's counterpart in the JAX package forces 512 host devices on JAX
+    at import; the control plane's counterparts are numpy modules the port
+    keeps its own copies of)."""
     env = dict(os.environ, PYTHONPATH=str(SRC))
     out = subprocess.run([sys.executable, "-c", _ONE, module], env=env,
                          capture_output=True, text=True, timeout=120)
