@@ -151,6 +151,23 @@ Phases; any failure exits non-zero and no phase's failure is caught:
      split into device, assembly and solver; the quickstart and
      templates_for_archs examples on the card against their CPU runs. The
      CPU side runs in a child process (``--control-cpu``) beside the card's.
+  8. closed loop (phase_closed_loop): the epoch runtime over phase 7's
+     card-built core library, no kernel of its own (event loop on the
+     host; re-solves and the observables' queries on the card). The five
+     closed-loop scenarios (estimator, re-solve controller, transition
+     planner; 10 epochs of 240 s, base rate 2.0, seed 2) and the four fault
+     scenarios (truth demands, a FaultInjector, health probe 15 s, restart
+     backoff, ShedPolicy(32); 12 epochs) equal the same runs on phase 7's
+     CPU-built library in the child bit for bit, wall-clock fields aside:
+     epoch metrics, the SLO report and its series, the request log, token
+     and arrival totals, the trace; every solve's instances are equal and
+     none fell back. batched=False equals batched on flash_crowd (truth
+     demands) and crash_storm; spot_preemption under CORAL_SANITIZE=1
+     raises nothing and equals its plain run; the adaptive_cluster example
+     equals its CPU run. Per run: requests, re-solves, mean $/h, goodput,
+     TTFT and TBT p95 and attainment per model, and the wall seconds split
+     into simulator (host), solves (device, assembly, solver, extract) and
+     observable queries.
 The line before the last is a JSON object with every kernel's numbers
 (before_ms: the earlier kernel on the same inputs: the CUDA-core kernel of
 the forward kernels, the earlier copy-then-gmm path of dx and dw, the two-sweep
@@ -2345,11 +2362,22 @@ def _control_builds(device):
     return lib, lib_s, temps, stats, time.time() - t0
 
 
-def _control_cpu_side(out_path):
-    """The CPU half of phase 7, in a child process: the port's CPU builds,
-    allocations and examples, pickled for the parent to compare."""
-    import io
+def _dump(obj, path):
+    """Pickle ``obj`` to ``path`` whole or not at all (a reader polls it)."""
+    import os
     import pickle
+    tmp = f"{path}.part"
+    with open(tmp, "wb") as f:
+        pickle.dump(obj, f)
+    os.replace(tmp, path)
+
+
+def _control_cpu_side(out_path):
+    """The CPU half of phases 7 and 8, in a child process: the port's CPU
+    builds, allocations and examples (phase 7, pickled to ``out_path``),
+    then phase 8's runs on the CPU-built core library (pickled beside it),
+    for the parent to compare."""
+    import io
     torch.set_num_threads(6)
     lib, lib_s, temps, stats, heavy_s = _control_builds("cpu")
     allocs = {case: _alloc_summary(a) for case, (a, _, _) in _control_allocations(lib).items()}
@@ -2357,11 +2385,42 @@ def _control_cpu_side(out_path):
     with contextlib.redirect_stdout(io.StringIO()):
         _, qs = quickstart.run("cpu")
         archs = templates_for_archs.run("cpu")
-    with open(out_path, "wb") as f:
-        pickle.dump({"lib": {k: _tset(v) for k, v in lib.templates.items()}, "lib_s": lib_s,
-                     "heavy": _tset(temps), "heavy_s": heavy_s, "heavy_combos": stats["combos"],
-                     "allocs": allocs, "quickstart": _alloc_summary(qs),
-                     "archs": {k: _tset(v) for k, v in archs.items()}}, f)
+    _dump({"lib": {k: _tset(v) for k, v in lib.templates.items()}, "lib_s": lib_s,
+           "heavy": _tset(temps), "heavy_s": heavy_s, "heavy_combos": stats["combos"],
+           "allocs": allocs, "quickstart": _alloc_summary(qs),
+           "archs": {k: _tset(v) for k, v in archs.items()}}, out_path)
+    t0 = time.time()
+    runs = _loop_runs(lib, "cpu")
+    _dump({"runs": runs, "seconds": time.time() - t0}, _loop_path(Path(out_path)))
+
+
+def _start_control_child():
+    """Phases 7 and 8's CPU side: ``chip_smoke.py --control-cpu OUT``."""
+    import tempfile
+    out = Path(tempfile.mkdtemp(prefix="control_")) / "cpu.pkl"
+    return subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--control-cpu",
+                             str(out)]), out
+
+
+def _await_pickle(child, path, timeout):
+    """The child's pickle at ``path`` once written; fails if the child
+    ended without it or the time runs out."""
+    import pickle
+    t0 = time.time()
+    while not path.exists():
+        rc = child.poll()
+        if rc is not None and not path.exists():
+            raise AssertionError(f"the CPU side of phases 7 and 8 failed (exit {rc})")
+        assert time.time() - t0 < timeout, f"no {path.name} from the CPU side in {timeout}s"
+        time.sleep(0.2)
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def _stop(child):
+    if child.poll() is None:
+        child.kill()
+    child.wait()
 
 
 def _check_allocation(what, a, want, avail, demands):
@@ -2383,78 +2442,69 @@ def _check_allocation(what, a, want, avail, demands):
     return got["instances"] == want["instances"]
 
 
-def phase_control_plane():
-    """7. The two-stage optimiser on the card against its CPU run."""
+def phase_control_plane(child, out):
+    """7. The two-stage optimiser on the card against its CPU run; returns
+    the card-built core library (phase 8 runs on it). ``child``/``out``:
+    the CPU side's process and pickle (``_start_control_child``), which
+    goes on to phase 8's CPU runs."""
     import io
-    import pickle
-    import tempfile
     from repro_torch.core import hardware as hw, modelspec as ms, placement as pl
     from repro_torch.core import profiles as pr, templates as tp
     from repro_torch.examples import quickstart, templates_for_archs
     from repro_torch.traces.workloads import workload_stats
     card = _card()
-    out = Path(tempfile.mkdtemp(prefix="control_")) / "cpu.pkl"
-    child = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--control-cpu",
-                              str(out)])
-    try:
-        # (1) profile rows: card vs CPU, bit for bit
-        t0 = time.time()
-        n = 0
-        for m in ms.PAPER_MODELS.values():
-            wl = workload_stats(m.trace)
-            for phase in ("prefill", "decode"):
-                slo = m.prefill_slo_ms if phase == "prefill" else m.decode_slo_ms
-                on_card = pr.ProfileTable(m, phase, slo, wl, device="cuda")
-                on_cpu = pr.ProfileTable(m, phase, slo, wl, device="cpu")
-                for c in hw.EXT_CONFIGS:
-                    for S in range(1, 9):
-                        got = on_card.table(c, S)
-                        assert got.device.type == "cuda" and got.dtype == torch.float64
-                        assert torch.equal(got.cpu(), on_cpu.table(c, S)), (m.name, phase, c.name, S)
-                        n += 1
-        print(f"[control] profile rows: {n} rows (6 models x 20 configs x 2 phases x S 1..8), "
-              f"card == CPU bit for bit, {time.time() - t0:.2f}s [{card}]", flush=True)
-        # (2), (3) the core library and the heavy pair on the card
-        torch.cuda.synchronize()
-        lib, lib_s, temps, stats, heavy_s = _control_builds("cuda")
-        for key, st in lib.stats.items():
-            cols = lib.columns(*key)
-            assert cols.usage.device.type == "cuda" and cols.throughput.device.type == "cuda"
-            print(f"[control] core library {key[0]} {key[1]}: {st['combos']} combos -> "
-                  f"{st['templates']} templates, device {st['device_seconds']:.3f}s, "
-                  f"host {st['host_seconds']:.3f}s [{card}]")
-        # the placement cache's rows on the card: one pair again, through
-        # a cache made here
-        m0 = ms.PAPER_MODELS[ms.CORE_MODELS[0]]
-        wl0 = workload_stats(m0.trace)
-        pt0 = pr.ProfileTable(m0, "decode", m0.decode_slo_ms, wl0, device="cuda")
-        by_name = {c.name: c for c in hw.CORE_CONFIGS}
-        cache = pl.PlacementCache(lambda nm, S: pt0.table(by_name[nm], S), m0.n_layers,
-                                  device="cuda")
-        again, _ = tp.generate_templates(m0, "decode", hw.CORE_CONFIGS, wl0, cache=cache)
-        assert cache._rows and all(r.device.type == "cuda" for r in cache._rows.values())
-        assert _tset(again) == _tset(lib.get(m0.name, "decode"))
-        print(f"[control] core library on the card: {lib.size} templates in {lib_s:.2f}s "
-              f"[{card}]")
-        print(f"[control] llama3-70b decode on EXT_CONFIGS (n_max=6): {stats['combos']} combos "
-              f"-> {len(temps)} templates in {heavy_s:.2f}s: device "
-              f"{stats['device_seconds']:.3f}s, host (Placement and ServingTemplate objects) "
-              f"{stats['host_seconds']:.3f}s [{card}]", flush=True)
-        # (4) allocations on the card-built library
-        card_allocs = _control_allocations(lib)
-        # (5) the examples on the card
-        with contextlib.redirect_stdout(io.StringIO()) as buf:
-            _, qs = quickstart.run("cuda")
-            archs = templates_for_archs.run("cuda")
-        print("[control] quickstart on the card:\n" + "\n".join(
-            "[control]   " + line for line in buf.getvalue().splitlines()))
-        assert child.wait(timeout=900) == 0, "the CPU side of phase 7 failed"
-    finally:
-        if child.poll() is None:
-            child.kill()
-            child.wait()
-    with open(out, "rb") as f:
-        cpu = pickle.load(f)
+    # (1) profile rows: card vs CPU, bit for bit
+    t0 = time.time()
+    n = 0
+    for m in ms.PAPER_MODELS.values():
+        wl = workload_stats(m.trace)
+        for phase in ("prefill", "decode"):
+            slo = m.prefill_slo_ms if phase == "prefill" else m.decode_slo_ms
+            on_card = pr.ProfileTable(m, phase, slo, wl, device="cuda")
+            on_cpu = pr.ProfileTable(m, phase, slo, wl, device="cpu")
+            for c in hw.EXT_CONFIGS:
+                for S in range(1, 9):
+                    got = on_card.table(c, S)
+                    assert got.device.type == "cuda" and got.dtype == torch.float64
+                    assert torch.equal(got.cpu(), on_cpu.table(c, S)), (m.name, phase, c.name, S)
+                    n += 1
+    print(f"[control] profile rows: {n} rows (6 models x 20 configs x 2 phases x S 1..8), "
+          f"card == CPU bit for bit, {time.time() - t0:.2f}s [{card}]", flush=True)
+    # (2), (3) the core library and the heavy pair on the card
+    torch.cuda.synchronize()
+    lib, lib_s, temps, stats, heavy_s = _control_builds("cuda")
+    for key, st in lib.stats.items():
+        cols = lib.columns(*key)
+        assert cols.usage.device.type == "cuda" and cols.throughput.device.type == "cuda"
+        print(f"[control] core library {key[0]} {key[1]}: {st['combos']} combos -> "
+              f"{st['templates']} templates, device {st['device_seconds']:.3f}s, "
+              f"host {st['host_seconds']:.3f}s [{card}]")
+    # the placement cache's rows on the card: one pair again, through
+    # a cache made here
+    m0 = ms.PAPER_MODELS[ms.CORE_MODELS[0]]
+    wl0 = workload_stats(m0.trace)
+    pt0 = pr.ProfileTable(m0, "decode", m0.decode_slo_ms, wl0, device="cuda")
+    by_name = {c.name: c for c in hw.CORE_CONFIGS}
+    cache = pl.PlacementCache(lambda nm, S: pt0.table(by_name[nm], S), m0.n_layers,
+                              device="cuda")
+    again, _ = tp.generate_templates(m0, "decode", hw.CORE_CONFIGS, wl0, cache=cache)
+    assert cache._rows and all(r.device.type == "cuda" for r in cache._rows.values())
+    assert _tset(again) == _tset(lib.get(m0.name, "decode"))
+    print(f"[control] core library on the card: {lib.size} templates in {lib_s:.2f}s "
+          f"[{card}]")
+    print(f"[control] llama3-70b decode on EXT_CONFIGS (n_max=6): {stats['combos']} combos "
+          f"-> {len(temps)} templates in {heavy_s:.2f}s: device "
+          f"{stats['device_seconds']:.3f}s, host (Placement and ServingTemplate objects) "
+          f"{stats['host_seconds']:.3f}s [{card}]", flush=True)
+    # (4) allocations on the card-built library
+    card_allocs = _control_allocations(lib)
+    # (5) the examples on the card
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        _, qs = quickstart.run("cuda")
+        archs = templates_for_archs.run("cuda")
+    print("[control] quickstart on the card:\n" + "\n".join(
+        "[control]   " + line for line in buf.getvalue().splitlines()))
+    cpu = _await_pickle(child, out, 900)
     assert {k: _tset(v) for k, v in lib.templates.items()} == cpu["lib"]
     assert lib.size == 28074, lib.size
     assert _tset(temps) == cpu["heavy"] and stats["combos"] == cpu["heavy_combos"]
@@ -2478,6 +2528,273 @@ def phase_control_plane():
     print(f"[control] examples on the card equal their CPU runs: quickstart cost "
           f"${qs.cost_per_hour:.4f}/h ({qs.solve_path}), templates_for_archs "
           f"{sum(len(v) for v in archs.values())} templates over {len(archs)} (arch, phase)")
+    return lib
+
+
+# ---------------------------------------------------------------- phase 8
+LOOP_EPOCHS, FAULT_EPOCHS, LOOP_EPOCH_S, LOOP_RATE, LOOP_SEED = 10, 12, 240.0, 2.0, 2
+# (c): batched=False beside batched; the batched/oracle contract covers runs
+# on truth demands (a closed loop's estimator reads queue snapshots, which
+# the batched loop holds differently by design)
+ORACLE_RUNS = (("flash_crowd", "truth"), ("crash_storm", "fault"))
+# wall-clock fields: the only numbers allowed to differ between two runs
+LOOP_WALL = ("solve_seconds", "solve_ms", "assembly_ms", "extract_ms")
+TRACE_WALL = ("solve_ms", "assembly_ms", "extract_ms", "total_ms")
+
+
+def _loop_path(out):
+    return out.with_name("loop.pkl")
+
+
+class _RecordedAllocator:
+    """``AllocatorState`` that keeps each solve's allocation beside the
+    epoch it ran in (``rt``, set after the runtime is built, gives it)."""
+
+    def __init__(self):
+        from repro_torch.core.allocator import AllocatorState
+        self.state, self.rt, self.calls = AllocatorState(), None, []
+
+    def set_incumbent(self, counts):
+        self.state.set_incumbent(counts)
+
+    def __call__(self, prob):
+        a = self.state(prob)
+        self.calls.append((self.rt._epoch_idx, a))
+        return a
+
+
+@contextlib.contextmanager
+def _layer_clock(acc):
+    """Adds to ``acc["sim"]`` the wall seconds of the event loop
+    (``Simulator.run_until``, with the runtime's callbacks that its events
+    run), to ``acc["solve"]`` those of the allocator's calls and to
+    ``acc["queries"]`` those of the observables' queries (goodput,
+    throughput, arrival windows, SLO windows: the tensors on the run's
+    device and the syncs that read them back). Each second counts once, in
+    the innermost clocked call: a mid-epoch re-solve inside ``run_until``
+    counts as a solve, the sanitizer's arrival windows there as queries."""
+    from repro_torch.obs import reqlog as rl
+    from repro_torch.simulator import sim as sm
+    saved = [(c, n, c.__dict__[n], layer) for c, n, layer in (
+        (sm.Simulator, "run_until", "sim"), (_RecordedAllocator, "__call__", "solve"),
+        (sm.Simulator, "goodput", "queries"),
+        (sm.Simulator, "throughput", "queries"), (sm._ObsLog, "window", "queries"),
+        (rl.SLOReport, "window", "queries"))]
+    inner = []                  # the seconds of nested clocked calls, per level
+
+    def clocked(fn, layer):
+        def run(*args, **kwargs):
+            inner.append(0.0)
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                dt = time.perf_counter() - t
+                acc[layer] += dt - inner.pop()
+                if inner:
+                    inner[-1] += dt
+        return run
+
+    for c, n, fn, layer in saved:
+        setattr(c, n, clocked(fn, layer))
+    try:
+        yield acc
+    finally:
+        for c, n, fn, _ in saved:
+            setattr(c, n, fn)
+
+
+def _loop_digest(res, epoch_s, sim=None, trace=None):
+    """Everything a run produces except wall-clock fields: epoch metrics,
+    aggregates, the SLO report over the run and its per-epoch series, the
+    request log's records and token totals; with the run's simulator also
+    the finished requests, drops and arrival totals, and with its trace the
+    records. The example returns its ``RunResult`` alone: ``sim=None``."""
+    from dataclasses import asdict
+    rep = res.slo_report
+    T = len(res.epochs) * epoch_s
+    out = {"epochs": [{k: v for k, v in asdict(e).items() if k not in LOOP_WALL}
+                      for e in res.epochs],
+           "aggregates": (res.avg_cost(), res.n_resolves(), res.total_failed(),
+                          res.total_restarted(), res.total_shed(), res.recovery_epochs(),
+                          res.solve_path_counts(), res.total_mid_resolves()),
+           "slo": rep.window(0.0, T),
+           "trace": None if trace is None else
+           [{k: v for k, v in r.items() if k not in TRACE_WALL} for r in trace.records]}
+    for m in rep.reqlog.models:
+        tok = rep.tokens[m]
+        out[m] = {"series": rep.series(m, epoch_s, 0.0, T), "tokens": len(tok),
+                  "count": (tok.count(0.0, T), tok.count(0.0, T, True)),
+                  "first": rep.reqlog.first_records(m),
+                  "terminal": rep.reqlog.terminal_records(m)}
+        if sim is not None:
+            out[m]["arrivals"] = sim.obs[m].arrival.window(0.0, T)
+    if sim is not None:
+        out["finished"] = sorted((r.rid, r.model, r.finish, r.prefill_done, r.decode_slo_ok,
+                                  r.decode_tokens_ok) for r in sim.finished)
+        out["counts"] = (sim.dropped, sim.shed, dict(sim.dropped_by_model),
+                         dict(sim.shed_by_model))
+    return out
+
+
+def _first_diff(a, b, path=""):
+    """The first path at which two digests differ (None when equal)."""
+    if isinstance(a, dict) and isinstance(b, dict):
+        if sorted(a, key=repr) != sorted(b, key=repr):
+            return f"{path} keys"
+        return next((d for k in sorted(a, key=repr)
+                     for d in [_first_diff(a[k], b[k], f"{path}/{k}")] if d), None)
+    if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)):
+        if len(a) != len(b):
+            return f"{path} length {len(a)} != {len(b)}"
+        return next((d for i, (x, y) in enumerate(zip(a, b))
+                     for d in [_first_diff(x, y, f"{path}[{i}]")] if d), None)
+    return None if a == b else f"{path}: {a!r} != {b!r}"
+
+
+def _one_loop(lib, name, kind, batched=True):
+    """One run of phase 8 on ``lib``'s device: ``closed`` (the closed loop
+    as examples/adaptive_cluster.py wires it), ``fault`` (truth demands, a
+    FaultInjector and the hardened runtime: health probe, restart backoff,
+    load shedding) or ``truth`` (truth demands alone). Returns its digest,
+    its allocations by epoch and its seconds split by layer."""
+    from repro_torch import control as ctl
+    from repro_torch.core import hardware as hw, modelspec as ms
+    from repro_torch.obs.trace import TraceLog
+    from repro_torch.runtime.cluster import ClusterRuntime
+    from repro_torch.simulator.sim import ShedPolicy
+    models, wls = _control_models()
+    models = {m.name: m for m in models}
+    sc = ctl.make_scenario(name, models, hw.CORE_REGIONS, hw.CORE_CONFIGS, wls,
+                           n_epochs=FAULT_EPOCHS if kind == "fault" else LOOP_EPOCHS,
+                           epoch_s=LOOP_EPOCH_S, base_rate=LOOP_RATE, seed=LOOP_SEED)
+    alloc, trace = _RecordedAllocator(), TraceLog()
+    kw = dict(health_check_s=15.0, shed_policy=ShedPolicy(32.0),
+              restart_policy=ctl.RestartPolicy(backoff_base_s=20.0, backoff_mult=2.0,
+                                               backoff_max_s=300.0, budget_per_epoch=4)) \
+        if kind == "fault" else {}
+    rt = ClusterRuntime(models, hw.CORE_REGIONS, hw.CORE_CONFIGS, lib, alloc, wls,
+                        epoch_s=sc.epoch_s, spot_market=sc.spot_market, sim_batched=batched,
+                        trace=trace, **kw)
+    alloc.rt = rt
+    acc = {"sim": 0.0, "solve": 0.0, "queries": 0.0}
+    t0 = time.perf_counter()
+    with _layer_clock(acc):
+        if kind == "closed":
+            res = rt.run(sc.requests, sc.availability,
+                         estimator=ctl.DemandEstimator(list(models), wls),
+                         controller=ctl.ReSolveController(),
+                         planner=ctl.TransitionPlanner(lib, hw.CORE_REGIONS, rt.init_k))
+        elif kind == "fault":
+            res = rt.run(sc.requests, sc.availability, sc.truth_demands,
+                         fault_injector=ctl.FaultInjector(sc.faults))
+        else:
+            res = rt.run(sc.requests, sc.availability, sc.truth_demands)
+    wall = time.perf_counter() - t0
+    digest = _loop_digest(res, rt.epoch_s, rt.sim, trace)
+    calls = [a for _, a in alloc.calls]
+    parts = (sum(a.device_seconds for a in calls),
+             sum(a.build_seconds - a.device_seconds for a in calls),
+             sum(a.solver_seconds for a in calls), sum(a.extract_seconds for a in calls))
+    return {"digest": digest,
+            "allocs": [(e, a.ok, a.fallback, a.solve_path, sorted(a.instances.items()))
+                       for e, a in alloc.calls],
+            "n_requests": len(sc.requests),
+            "seconds": {"wall": wall, "parts": parts, **acc,
+                        "rest": wall - sum(acc.values())}}
+
+
+def _loop_runs(lib, device):
+    """Phase 8's runs that the card and the CPU child both make: the five
+    closed-loop scenarios, the four fault scenarios and the example."""
+    import io
+    from repro_torch.control import FAULT_SCENARIO_NAMES, SCENARIO_NAMES
+    from repro_torch.examples import adaptive_cluster
+    assert str(lib.device).startswith(device), (lib.device, device)
+    runs = {("closed", n): _one_loop(lib, n, "closed") for n in SCENARIO_NAMES}
+    runs.update({("fault", n): _one_loop(lib, n, "fault") for n in FAULT_SCENARIO_NAMES})
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        res = adaptive_cluster.run(device)
+    runs["example"] = {"run": _loop_digest(res, LOOP_EPOCH_S),
+                       "text": [line[:29] + line[37:] for line in buf.getvalue().splitlines()]}
+    return runs
+
+
+def phase_closed_loop(lib, child, out, device="cuda"):
+    """8. The closed loop on the card over the core library phase 7 built
+    there, against the same runs on the CPU-built library in the child."""
+    import os
+    card = _card()
+    t_all = time.time()
+    card_runs = _loop_runs(lib, device)
+    # (c) batched=False beside batched, on the card
+    for name, kind in ORACLE_RUNS:
+        batched = card_runs.get((kind, name)) or _one_loop(lib, name, kind)
+        oracle = _one_loop(lib, name, kind, batched=False)
+        diff = _first_diff(oracle["digest"], batched["digest"])
+        assert diff is None, f"{name} ({kind}) batched=False differs from batched: {diff}"
+        print(f"[loop] {name} ({'truth demands' if kind == 'truth' else 'faults'}) "
+              f"batched=False == batched bit for bit on the card: oracle "
+              f"{oracle['seconds']['wall']:.2f}s vs batched {batched['seconds']['wall']:.2f}s "
+              f"[{card}]", flush=True)
+    # (d) the sanitizer on the card
+    was = os.environ.get("CORAL_SANITIZE")
+    os.environ["CORAL_SANITIZE"] = "1"
+    try:
+        san = _one_loop(lib, "spot_preemption", "closed")
+    finally:
+        if was is None:
+            del os.environ["CORAL_SANITIZE"]
+        else:
+            os.environ["CORAL_SANITIZE"] = was
+    diff = _first_diff(san["digest"], card_runs[("closed", "spot_preemption")]["digest"])
+    assert diff is None, f"spot_preemption under CORAL_SANITIZE=1 differs: {diff}"
+    print(f"[loop] spot_preemption under CORAL_SANITIZE=1 on the card: no violation, same "
+          f"run, {san['seconds']['wall']:.2f}s [{card}]", flush=True)
+    cpu = _await_pickle(child, _loop_path(out), 900)
+    assert child.wait(timeout=60) == 0, "the CPU side of phases 7 and 8 failed"
+    # (a), (b) card == CPU bit for bit, epoch by epoch; equal allocations, no fallback
+    for key, r in card_runs.items():
+        if key == "example":
+            continue
+        want = cpu["runs"][key]
+        for (e, ok, fb, path, inst), (e2, ok2, fb2, path2, inst2) in zip(r["allocs"],
+                                                                        want["allocs"]):
+            assert not fb and not fb2 and ok and ok2, \
+                f"{key} epoch {e}: a fallback or failed solve (card {fb}/{ok}, CPU {fb2}/{ok2})"
+            assert (e, path, inst) == (e2, path2, inst2), \
+                f"{key} epoch {e}: the card's allocation differs from the CPU's"
+        assert len(r["allocs"]) == len(want["allocs"]), key
+        diff = _first_diff(r["digest"], want["digest"])
+        assert diff is None, f"{key}: card != CPU at {diff}"
+        dg, sec = r["digest"], r["seconds"]
+        slo = dg["slo"]
+        print(f"[loop] {key[0]} {key[1]}: card == CPU bit for bit ({len(dg['epochs'])} epochs, "
+              f"{len(r['allocs'])} solves, equal allocations, no fallback); "
+              f"{r['n_requests']} requests, {dg['aggregates'][1]} re-solves, mean "
+              f"${dg['aggregates'][0]:.4f}/h [{card}]")
+        for m in slo:
+            gp = sum(e["goodput"][m] for e in dg["epochs"]) / len(dg["epochs"])
+            s = slo[m]
+            print(f"[loop]   {m}: goodput {gp:.2f} tok/s, TTFT p95 {s['ttft_p95']:.4f}s "
+                  f"attain {s['ttft_attain']:.4f}, TBT p95 {s['tbt_p95']:.5f}s attain "
+                  f"{s['tbt_attain']:.4f}")
+        dev_s, asm_s, hs_s, ext_s = sec["parts"]
+        print(f"[loop]   seconds: {sec['wall']:.2f} wall = event loop (host: run_until, "
+              f"with the runtime's callbacks in it) "
+              f"{sec['sim']:.2f} + solves {sec['solve']:.2f} (device {dev_s:.3f}, assembly "
+              f"{asm_s:.3f}, solver {hs_s:.3f}, extract {ext_s:.3f}) + observable queries "
+              f"(device) {sec['queries']:.3f} + the rest on the host (estimator, controller, "
+              f"planner, reconcile, trace) {sec['rest']:.3f}; CPU child "
+              f"{want['seconds']['wall']:.2f}", flush=True)
+    # (e) the example
+    ex, want = card_runs["example"], cpu["runs"]["example"]
+    diff = _first_diff(ex, want)
+    assert diff is None, f"adaptive_cluster on the card != its CPU run at {diff}"
+    print(f"[loop] examples/adaptive_cluster on the card == its CPU run "
+          f"({len(ex['run']['epochs'])} epochs) [{card}]")
+    print(f"[loop] phase 8: card side {time.time() - t_all:.1f}s, CPU child's runs "
+          f"{cpu['seconds']:.1f}s [{card}]")
 
 
 @contextlib.contextmanager
@@ -2537,8 +2854,14 @@ def main():
             trained[arch], train_peaks[arch] = phase_train(arch)
     with _timed("6 mesh and dry-run"):
         phase_mesh(runs, train_peaks)
-    with _timed("7 control plane"):
-        phase_control_plane()
+    child, out = _start_control_child()
+    try:
+        with _timed("7 control plane"):
+            core_lib = phase_control_plane(child, out)
+        with _timed("8 closed loop"):
+            phase_closed_loop(core_lib, child, out)
+    finally:
+        _stop(child)
     # each kernel's launches on its path's run: the forward kernels on the
     # poisson5 serving run (granite's runs attention and the grouped matmul,
     # zamba2's the SSD scan), the backward ones on granite's train run, the

@@ -59,13 +59,18 @@ assert not bad, bad
                                     "repro_torch.launch.hlo_analysis",
                                     "repro_torch.launch.dryrun",
                                     "repro_torch.core.allocator",
-                                    "repro_torch.core.templates"])
+                                    "repro_torch.core.templates",
+                                    "repro_torch.simulator.sim",
+                                    "repro_torch.runtime.cluster",
+                                    "repro_torch.control",
+                                    "repro_torch.obs"])
 def test_distributed_and_dryrun_modules_load_no_jax_and_no_repro(module):
-    """The meshes, the sharding layer, the dry-run and the control plane's
-    allocator and template generator, each alone in a fresh process (the
-    dry-run's counterpart in the JAX package forces 512 host devices on JAX
-    at import; the control plane's counterparts are numpy modules the port
-    keeps its own copies of)."""
+    """The meshes, the sharding layer, the dry-run, the control plane's
+    allocator and template generator, the simulator, the epoch runtime, the
+    control loop and the observability layer, each alone in a fresh process
+    (the dry-run's counterpart in the JAX package forces 512 host devices on
+    JAX at import; the control plane's counterparts are numpy modules the
+    port keeps its own copies of)."""
     env = dict(os.environ, PYTHONPATH=str(SRC))
     out = subprocess.run([sys.executable, "-c", _ONE, module], env=env,
                          capture_output=True, text=True, timeout=120)
