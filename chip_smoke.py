@@ -107,11 +107,31 @@ Phases; any failure exits non-zero and no phase's failure is caught:
      per decode step; whisper-base: 18 flash per prefill, 12 decode
      attention per step, the 6 cross ones on 3 splits; xlstm-350m: no
      kernel at all, its path is plain torch in both packages; no serving
-     path launches the SSD scan's backward). Then one
-     profiler window over full-width decode steps of each served model, glm4-9b
-     and whisper-base: wall time, device busy share, device time by
-     kernel family and by kernel; and one profiled zamba2 prefill of a
-     63-token prompt, the only place the SSD kernel runs.
+     path launches the SSD scan's backward). Each engine captures its
+     decode step as one CUDA graph and decodes only by replays: decode_step
+     is called twice per engine, to warm up (checked for its launches) and
+     under capture (checked for what the wrappers record, and that nothing
+     launches), the replays equal the engine's decode rows, and the
+     isfinite check captured with the step holds every replay's logits.
+     granite's and zamba2's poisson5 runs each run inside one profiler
+     window, whose device launches of the kernels, by symbol, must be the
+     wrappers' launches plus the replays x the per-step count (the kernels
+     line's launches). Each served model's burst trace also runs with the
+     capture skipped (eager steps, the harness's yardstick for tok/s and
+     TPOT), and the burst's requests are drained on one schedule by a
+     captured and an eager engine: are the tokens equal, and where not, the
+     step and the top-2 logit margins. Then, for each served model and glm4-9b, an
+     engine with 8 slots busy: one replay's logits against one eager
+     decode_step's from copies of the same cache and tokens (bf16 2e-2),
+     the step's wall eager and replayed in turns, and one profiler window
+     over eager steps and one over replays (wall, device busy share,
+     device ops per step, device time by kernel family and by kernel), in
+     which the replays launch each kernel, counted by symbol, exactly
+     steps x its per-step count; one [graph-table] line per model
+     (the walls, busy shares, ops per step, tok/s and TPOT p50/p95 of its
+     captured and eager serving runs). Whisper-base's decode steps (the
+     model API) are profiled too, and one zamba2 prefill of a 63-token
+     prompt, the only place the SSD kernel runs.
   5. train: qwen2-1.5b (28 layers, B=4, S=512), granite-moe-3b-a800m
      (32 layers, B=2, S=512), xlstm-350m (24 layers, B=4, S=512) and
      zamba2-1.2b (38 Mamba layers, 6 insertions of the shared block, B=4,
@@ -126,7 +146,9 @@ Phases; any failure exits non-zero and no phase's failure is caught:
   6. mesh and dry-run (phase_mesh): qwen2-1.5b served under a one-rank
      NCCL mesh (make_debug_mesh on the card, an in-process store) with
      phase 4's traces: every request's tokens and every call's launches as
-     in phase 4 without a mesh; the dry-run (launch/dryrun.py, in two child
+     in phase 4 without a mesh (the params are plain tensors, so the engine
+     captures its graph under the mesh too; the burst run replays it as
+     often as phase 4's); the dry-run (launch/dryrun.py, in two child
      processes: the fake process group cannot share one with NCCL) of
      phase 5's qwen2-1.5b and granite-moe-3b-a800m steps on a 1x1 mesh,
      its params + optimizer bytes within 1% of what the card holds after
@@ -177,12 +199,20 @@ granite's poisson5 run, the SSD scan at zamba2-1.2b's prefill shape with its
 launches from zamba2's poisson5 run, the flash backward and the grouped
 matmul's dx and dw at granite's training shapes with their launches from
 granite's train run, the SSD scan's backward at zamba2-1.2b's training
-shape with its launches from zamba2's train run; the last line is
+shape with its launches from zamba2's train run. In serving, decode
+attention and the grouped matmul launch from the decode graph's replays,
+which no wrapper sees: there ``launches`` is the device's count by kernel
+symbol in one profiler window over the poisson5 run, ``wrapper_launches``
+the wrappers' own (prefills, the warm-up before capture) and ``captured``
+what the capture recorded; in training all three come from the wrappers
+(launches = wrapper_launches, captured 0). The last line is
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
+import gc
 import json
 import statistics
 import subprocess
@@ -1718,8 +1748,12 @@ class _Counted:
     """For the length of a ``with``, wraps a family module's prefill and
     decode_step (the engine and the model API call them through the module):
     every call must launch each kernel exactly as _per_call_launches says
-    for the config it is given. Counts the calls per (model, kind) and keeps
-    whether every logit was finite; on entry sets every launch count to 0."""
+    for the config it is given, and a decode_step that a CUDA graph's
+    capture records (kind "capture") must record each kernel so, in the
+    wrappers' ``captured`` counts, and launch none. Counts the calls per
+    (model, kind) and keeps whether every logit was finite (the check is
+    recorded with a captured call and runs at each replay); on entry sets
+    every launch and capture count to 0."""
 
     def __init__(self, model):
         self.model = model
@@ -1730,12 +1764,17 @@ class _Counted:
 
     def _wrap(self, kind):
         def call(params, cfg, *a, **kw):
-            before = {n: op.launches for n, op in self.ops.items()}
+            capture = torch.cuda.is_current_stream_capturing()
+            before = {n: (op.launches, op.captured) for n, op in self.ops.items()}
             logits, cache = self.real[kind](params, cfg, *a, **kw)
-            made = {n: op.launches - before[n] for n, op in self.ops.items()}
+            launched = {n: op.launches - before[n][0] for n, op in self.ops.items()}
+            recorded = {n: op.captured - before[n][1] for n, op in self.ops.items()}
+            got, none = (recorded, launched) if capture else (launched, recorded)
             want = {n: _per_call_launches(cfg)[kind].get(n, 0) for n in self.ops}
-            assert made == want, f"{cfg.name} {kind}: launches {made}, want {want}"
-            self.calls[cfg.name, kind] = self.calls.get((cfg.name, kind), 0) + 1
+            kind_ = "capture" if capture else kind
+            assert got == want and not any(none.values()), \
+                f"{cfg.name} {kind_}: launched {launched}, captured {recorded}, want {want}"
+            self.calls[cfg.name, kind_] = self.calls.get((cfg.name, kind_), 0) + 1
             self.finite.logical_and_(torch.isfinite(logits).all())
             return logits, cache
         return call
@@ -1743,14 +1782,19 @@ class _Counted:
     def launches(self):
         return {n: op.launches for n, op in self.ops.items()}
 
-    def expected(self, cfgs):
-        """Launches the counted calls of the models ``cfgs`` must have made."""
-        return {n: sum(_per_call_launches(c)[k].get(n, 0) * self.calls.get((c.name, k), 0)
-                       for c in cfgs for k in ("prefill", "decode")) for n in self.ops}
+    def captured(self):
+        return {n: op.captured for n, op in self.ops.items()}
+
+    def expected(self, cfgs, kinds=("prefill", "decode")):
+        """Launches the counted calls of the models ``cfgs`` must have made
+        (with ``kinds=("capture",)``, what their captures must have recorded)."""
+        return {n: sum(_per_call_launches(c)["decode" if k == "capture" else k].get(n, 0)
+                       * self.calls.get((c.name, k), 0) for c in cfgs for k in kinds)
+                for n in self.ops}
 
     def __enter__(self):
         for op in self.ops.values():
-            op.launches = 0
+            op.launches = op.captured = 0
         self.model.prefill, self.model.decode_step = self._wrap("prefill"), self._wrap("decode")
         return self
 
@@ -1758,38 +1802,202 @@ class _Counted:
         self.model.prefill, self.model.decode_step = self.real["prefill"], self.real["decode"]
 
 
-def phase_serve(arch):
+@contextlib.contextmanager
+def _engines(eager=False, margins=False):
+    """Records what every TorchEngine made inside the ``with`` did: yields a
+    list that is filled on exit with one dict per engine (its model,
+    whether it captured its graph, its replays, its decode rows, and with
+    ``margins`` its decode calls' top-2 logit margins per slot and the
+    slots active in each), and drops the engines themselves. ``eager``: the
+    engines skip their capture and run the decode body eagerly on the card,
+    the harness's yardstick for the graph (the engine itself never falls
+    back to eager steps on the card)."""
+    from repro_torch.serving.engine import TorchEngine
+
+    made, real = [], (TorchEngine.__init__, TorchEngine._capture, TorchEngine.decode)
+    out = []
+
+    def init(self, *a, **kw):
+        self.decodes = []
+        real[0](self, *a, **kw)
+        made.append(self)
+
+    def decode(self):
+        logits = real[2](self)
+        if margins:
+            top = logits[:, :self.cfg.vocab_size].float().topk(2, -1).values
+            self.decodes.append((top[:, 0] - top[:, 1],
+                                 {s.rid: i for i, s in enumerate(self.slots) if s is not None}))
+        return logits
+
+    TorchEngine.__init__, TorchEngine.decode = init, decode
+    if eager:
+        TorchEngine._capture = lambda self: None
+    try:
+        yield out
+    finally:
+        TorchEngine.__init__, TorchEngine._capture, TorchEngine.decode = real
+        for e in made:
+            out.append({"arch": e.cfg.name, "graph": e.graph is not None, "replays": e.replays,
+                        "decode_rows": sum(k == "decode" for k, _, _ in e.iteration_log),
+                        "decodes": [(m.cpu(), act) for m, act in e.decodes]})
+        made.clear()
+
+
+def _token_diffs(what, got, want, got_decodes, want_decodes):
+    """Prints whether two runs' tokens ({rid: tokens}) are equal, and for
+    each request whose tokens differ, the first decode step that differs
+    (the request's own step, and the engine's decode call in each run) and
+    the top-2 logit margin of that slot there in both runs. Returns
+    whether they were equal."""
+    def at(decodes, rid, j):       # the decode call that made token j (j >= 1) of rid
+        calls = [(n, m[act[rid]]) for n, (m, act) in enumerate(decodes) if rid in act]
+        return calls[j - 1]
+
+    differ = []
+    for rid in sorted(want):
+        j = next((j for j, (a, b) in enumerate(zip(got[rid], want[rid])) if a != b), None)
+        if j is None and len(got[rid]) == len(want[rid]):
+            continue
+        if j is None or j == 0:
+            differ.append(f"rid {rid}: {'length' if j is None else 'prefill token'} differs")
+            continue
+        (ng, mg), (nw, mw) = at(got_decodes, rid, j), at(want_decodes, rid, j)
+        differ.append(f"rid {rid} token {j} ({got[rid][j]} vs {want[rid][j]}): decode call "
+                      f"{ng} vs {nw}, top-2 margin {float(mg):.4g} vs {float(mw):.4g}")
+    n = sum(map(len, want.values()))
+    print(f"[serve] {what}: tokens {'equal' if not differ else 'DIFFER'} ({n} tokens of "
+          f"{len(want)} requests; {len(got_decodes)} vs {len(want_decodes)} decode calls)"
+          + "".join(f"\n[serve]   {d}" for d in differ))
+    return not differ
+
+
+def _same_schedule(cfg, reqs):
+    """``reqs`` ({rid: (prompt, max_new)}) all submitted before the first
+    step to an engine that captures its decode step and to one that skips
+    the capture, on serve()'s params (seed 0), each drained: one schedule in
+    both, where serve()'s admissions follow the clock (and granite's expert
+    capacity, hence its tokens, depends on which slots are busy). Prints
+    and returns whether every token is equal."""
+    from repro_torch.models.api import get_model
+    from repro_torch.serving.engine import TorchEngine
+
+    params = get_model(cfg).init(torch.Generator(device="cuda").manual_seed(0), cfg)
+    out = {}
+    for mode in ("captured", "eager"):
+        with _engines(eager=mode == "eager", margins=True) as engines:
+            eng = TorchEngine(cfg, params, max_batch=8, max_len=SERVE_MAX_LEN)
+            for rid, (prompt, max_new) in sorted(reqs.items()):
+                eng.submit(rid, prompt, max_new)
+            out[mode] = {rid: list(r.out_tokens) for rid, r in eng.drain().items()}
+            del eng
+        (e,) = engines
+        assert e["graph"] == (mode == "captured"), e
+        out[mode + " decodes"] = e["decodes"]
+    del params
+    torch.cuda.empty_cache()
+    return _token_diffs(f"{cfg.name}, the burst's requests on one schedule, captured vs eager",
+                        out["captured"], out["eager"], out["captured decodes"],
+                        out["eager decodes"])
+
+
+def phase_serve(arch, profile_run=False):
     """Serve ``arch`` at full width through repro_torch.launch.serve, with
-    Poisson arrivals at 5/s and with all requests at once. Every prefill and
-    decode step is checked for its launches and finite logits."""
+    Poisson arrivals at 5/s and with all requests at once. Each engine
+    captures its decode step as one CUDA graph and every decode step is a
+    replay: an engine calls decode_step once to warm up (checked for its
+    launches) and once under capture (checked for what it records, and
+    that it launches nothing), the replays are counted and equal the
+    engine's decode rows, and the captured isfinite of _Counted holds every
+    replay's logits. Every prefill is checked for its launches and finite
+    logits. With ``profile_run``, one torch.profiler window (device
+    activity) over the whole poisson5 run, the last of the three, counts the kernels' device
+    launches by symbol, which must be the wrappers' launches (prefills,
+    warm-up) plus the replays x the per-step count. The burst trace runs
+    once more with the capture skipped (eager decode steps, each checked),
+    for the eager tok/s and TPOT; the burst's requests are drained on one
+    schedule by a captured and an eager engine (_same_schedule), whose
+    tokens are compared."""
+    from torch.profiler import ProfilerActivity, profile
+
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.serve import serve
     from repro_torch.models.api import get_model
 
     cfg = get_config(arch)
     model = get_model(cfg)      # the family's module, which the engine calls
+    per_step = _per_call_launches(cfg)["decode"]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    with _Counted(model) as warm:
+    with _Counted(model) as warm, _engines():
         # warm-up: first-call costs (cuBLAS handles, allocator) out of the numbers
         serve(cfg, n_requests=2, rate=1e3, max_len=SERVE_MAX_LEN, seed=1, device="cuda")
     assert bool(warm.finite), f"{arch} warm-up: non-finite logits"
     runs = {}
-    for label, rate in (("poisson5", 5.0), ("burst", 1e6)):
-        with _Counted(model) as counted:
+    # the profiled poisson5 run last: the burst runs' tok/s and TPOT are
+    # taken before it, with no profiler's events alive in the process
+    for label, rate, eager in (("burst", 1e6, False), ("burst_eager", 1e6, True),
+                               ("poisson5", 5.0, False)):
+        profiled = profile_run and label == "poisson5"
+        window = profile(activities=[ProfilerActivity.CUDA]) if profiled \
+            else contextlib.nullcontext()
+        with _Counted(model) as counted, _engines(eager) as engines, window as prof:
             finished, summary = serve(cfg, n_requests=16, rate=rate, max_batch=8,
                                       max_len=SERVE_MAX_LEN, seed=0, device="cuda")
-        launches = counted.launches()
-        calls = {k: counted.calls.get((cfg.name, k), 0) for k in ("prefill", "decode")}
+            torch.cuda.synchronize()
+            if profiled:
+                # the trace keeps only device events that end before its
+                # stop on the host's clock, onto which the device's
+                # timestamps are mapped: a margin, so that no offset between
+                # the two clocks drops the run's last replays
+                time.sleep(0.5)
+            t_run = time.perf_counter()
+        t_exit = time.perf_counter() - t_run
+        launches, captured = counted.launches(), counted.captured()
+        calls = {k: counted.calls.get((cfg.name, k), 0) for k in ("prefill", "decode", "capture")}
+        (eng,) = engines
         assert len(finished) == 16, f"{label}: {len(finished)} of 16 requests finished"
         assert bool(counted.finite), f"{arch} {label}: non-finite logits"
-        assert calls["prefill"] == 16 and calls["decode"] > 0, calls
+        assert calls["prefill"] == 16 and eng["decode_rows"] > 0, (calls, eng["decode_rows"])
+        if eager:
+            assert not eng["graph"] and eng["replays"] == 0 and calls["capture"] == 0 and \
+                calls["decode"] == eng["decode_rows"], (calls, eng)
+        else:
+            assert eng["graph"] and calls["decode"] == calls["capture"] == 1 and \
+                eng["replays"] == eng["decode_rows"], f"{arch} {label}: {calls}, {eng}"
         want = counted.expected([cfg])
         assert launches == want, f"{arch} {label}: launches {launches}, want {want}"
+        want = counted.expected([cfg], ("capture",))
+        assert captured == want, f"{arch} {label}: captured {captured}, want {want}"
         print(f"[serve] {arch} {label}: rate {rate}/s, {calls['prefill']} prefills, "
-              f"{calls['decode']} decode steps, kernels {json.dumps(launches)}")
+              + (f"{calls['decode']} eager decode steps" if eager else
+                 f"{eng['replays']} decode graph replays (decode_step called once to warm up, "
+                 f"once under capture)") + f", kernels launched by their wrappers "
+              f"{json.dumps(launches)}" + ("" if eager else
+                                          f", recorded by the capture {json.dumps(captured)}"))
         print(f"[serve] {arch} {label}: {json.dumps(summary)}")
-        runs[label] = (launches, summary, {rid: list(r.out_tokens) for rid, r in finished.items()})
+        runs[label] = {"launches": launches, "captured": captured, "summary": summary,
+                       "replays": eng["replays"],
+                       "tokens": {rid: list(r.out_tokens) for rid, r in finished.items()},
+                       "requests": {rid: (r.prompt, r.max_new) for rid, r in finished.items()}}
+        if profiled:
+            t0 = time.perf_counter()
+            # the window's raw kineto events, counted by name: building the
+            # FunctionEvents of prof.events() or key_averages() over the
+            # run's ~10^5 kernels takes 25-30 s
+            device = _symbol_launches(collections.Counter(
+                e.name() for e in prof.profiler.kineto_results.events()
+                if e.device_type() == torch.autograd.DeviceType.CUDA))
+            want = {op: launches[op] + eng["replays"] * per_step[op] for op in KERNEL_SYMBOLS}
+            assert device == want, f"{arch} {label}: the device launched {device}, want {want}"
+            runs[label]["device_launches"] = device
+            prof = None
+            gc.collect()
+            print(f"[serve] {arch} {label}: the kernels' device launches in the run, counted by "
+                  f"symbol in one profiler window over it: {json.dumps(device)} = the wrappers' "
+                  f"launches + {eng['replays']} replays x {json.dumps(per_step)} (the window "
+                  f"closed in {t_exit:.1f}s, counted in {time.perf_counter() - t0:.1f}s)")
+    runs["tokens_equal_eager"] = _same_schedule(cfg, runs["burst"]["requests"])
     runs["peak_bytes"] = torch.cuda.max_memory_allocated()
     print(f"[serve] {arch}: peak device memory {runs['peak_bytes'] / 1e9:.2f} GB")
     torch.cuda.empty_cache()
@@ -1800,9 +2008,11 @@ def phase_multi_llm():
     """The multi-LLM example at full width, bf16, random weights from a seed:
     qwen2-1.5b (28 layers) and glm4-9b (40 layers) on two engines behind the
     round robin, the JAX example's trace (16 requests per model at 4 req/s
-    per model). Every request finishes, every logit is finite, and each
-    engine's prefills and decode steps launch flash and decode attention
-    once per layer of its model."""
+    per model). Every request finishes, every logit is finite, each engine
+    captured its decode graph and replayed it once per decode row (two
+    graphs on one card, replayed in turn on one stream), and each engine's
+    prefills and its two decode_step calls (warm-up, capture) launch flash
+    and decode attention once per layer of its model."""
     from repro_torch.configs.registry import get_config
     from repro_torch.examples.serve_multi_llm import ARCHS, N_REQ, serve_multi_llm
     from repro_torch.models.api import get_model
@@ -1810,26 +2020,39 @@ def phase_multi_llm():
     cfgs = [get_config(a) for a in ARCHS]
     model = get_model(cfgs[0])
     assert all(get_model(c) is model for c in cfgs)
-    with _Counted(model) as warm:       # warm-up: one request per model
+    with _Counted(model) as warm, _engines():       # warm-up: one request per model
         serve_multi_llm(n_req=1, rate=1e3, smoke=False, device="cuda", seed=1)
     assert bool(warm.finite), "multi-LLM warm-up: non-finite logits"
     torch.cuda.empty_cache()
-    with _Counted(model) as counted:
+    with _Counted(model) as counted, _engines() as engines:
         finished, summary = serve_multi_llm(smoke=False, device="cuda")
     assert len(finished) == N_REQ * len(ARCHS), f"{len(finished)} requests finished"
     assert bool(counted.finite), "multi-LLM: non-finite logits"
+    assert sorted(e["arch"] for e in engines) == sorted(c.name for c in cfgs), engines
     for c in cfgs:
+        (eng,) = [e for e in engines if e["arch"] == c.name]
         assert counted.calls.get((c.name, "prefill")) == N_REQ and \
-            counted.calls.get((c.name, "decode"), 0) > 0, counted.calls
+            counted.calls.get((c.name, "decode")) == counted.calls.get((c.name, "capture")) == 1, \
+            counted.calls
+        assert eng["graph"] and eng["replays"] == eng["decode_rows"] > 0, eng
     launches, want = counted.launches(), counted.expected(cfgs)
     assert launches == want, f"multi-LLM: launches {launches}, want {want}"
+    captured, want = counted.captured(), counted.expected(cfgs, ("capture",))
+    assert captured == want, f"multi-LLM: captured {captured}, want {want}"
     print(f"[serve] multi-LLM {' + '.join(ARCHS)} full width: calls "
           f"{json.dumps({f'{m} {k}': n for (m, k), n in sorted(counted.calls.items())})}, "
-          f"kernels {json.dumps(launches)}")
-    for arch, s in summary.items():
+          f"decode graph replays {json.dumps({e['arch']: e['replays'] for e in engines})}, "
+          f"kernels launched by their wrappers {json.dumps(launches)}, recorded by the "
+          f"captures {json.dumps(captured)}")
+    from repro_torch.obs.percentiles import percentiles
+    for i, (arch, s) in enumerate(summary.items()):
+        # TPOT as launch.serve counts it: the gaps between a request's tokens
+        gaps = [g for rid, r in finished.items() if rid % len(ARCHS) == i
+                for g in np.diff(r.token_times)]
+        s["tpot_p50_s"], s["tpot_p95_s"] = percentiles(gaps, (0.50, 0.95))
         print(f"[serve] multi-LLM {arch}: {json.dumps(s)}")
     torch.cuda.empty_cache()
-    return launches
+    return summary
 
 
 def _train_launches(cfg):
@@ -2039,10 +2262,19 @@ KERNEL_FAMILIES = {"grouped matmul": ("gmm_kernel", "gmm_mma_kernel", "gmm_tiled
                    "ssd scan backward": ("ssd_bwd_",)}
 
 
+# The forward kernels' symbols by the wrapper that launches them: a
+# profiler's kernel key is the demangled symbol
+KERNEL_SYMBOLS = {"flash_attention": ("flash_fwd_kernel", "flash_mma_kernel"),
+                  "decode_attention": ("decode_kernel", "decode_split_kernel"),
+                  "grouped_matmul": ("gmm_kernel", "gmm_mma_kernel", "gmm_tiled_kernel"),
+                  "ssd_scan": ("ssd_scan_kernel", "ssd_mma_kernel")}
+
+
 def _profiled(what, fn, calls):
     """One torch.profiler window over ``calls`` runs of ``fn``: prints the
     wall time per call, the device's busy share, its split into the port's
-    kernel families and the rest, and the kernels by device time."""
+    kernel families and the rest, and the kernels by device time. Returns
+    _report_profile's numbers."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -2052,14 +2284,15 @@ def _profiled(what, fn, calls):
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) / calls * 1e3
-    _report_profile(what, prof, wall_ms, calls)
+    return _report_profile(what, prof, wall_ms, calls)
 
 
 def _report_profile(what, prof, wall_ms, calls):
     """Device busy share, its split into kernel families and the top kernels
-    of a finished profiler window over ``calls`` calls of ``wall_ms`` each."""
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    of a finished profiler window over ``calls`` calls of ``wall_ms`` each.
+    Returns {wall_ms, busy_ms, ops (device ops per call), launches (the
+    window's device launches of each KERNEL_SYMBOLS wrapper's kernels)}."""
+    kernels = _device_events(prof)
     dev = {e.key: e.self_device_time_total / 1e3 / calls for e in kernels}   # ms per call
     busy = sum(dev.values())
     n_launch = sum(e.count for e in kernels) / calls
@@ -2073,12 +2306,40 @@ def _report_profile(what, prof, wall_ms, calls):
         f"{fam} {ms:.3f} ({100 * ms / busy:.1f}%)" for fam, ms in split.items()))
     for name, ms in sorted(dev.items(), key=lambda kv: -kv[1])[:10]:
         print(f"[profile]   {ms:8.3f} ms/call  {name[:110]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy, "ops": n_launch,
+            "launches": _symbol_launches({e.key: e.count for e in kernels})}
+
+
+def _device_events(prof):
+    """A finished profiler window's device events, aggregated by kernel."""
+    return [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def _symbol_launches(counts):
+    """The device launches of each KERNEL_SYMBOLS wrapper's kernels, from
+    ``counts`` ({kernel name: launches})."""
+    import re
+    return {op: sum(n for name, n in counts.items()
+                    if re.search(r"\b(" + "|".join(syms) + r")\b", name))
+            for op, syms in KERNEL_SYMBOLS.items()}
+
+
+PROFILE_ARCHS = SERVE_ARCHS + HEAD_ARCHS + ("glm4-9b",)
+TIMED_STEPS = 10    # engine steps per turn of the eager-against-replay timing
 
 
 def phase_profile(arch, steps=4):
-    """Where a full-width decode step's time goes: one profiler window over
-    `steps` engine steps with all 8 slots busy. For the hybrid also one
-    prefill of a 63-token prompt, where its SSD kernel runs."""
+    """A full-width decode step, eager against captured, with all 8 slots of
+    an engine busy (48-token prompts, bf16). (a) Parity: from copies of the
+    same cache and tokens, one eager decode_step's logits and one replay's
+    agree within the bf16 tolerance. (b) The engine's step timed with its
+    graph set aside (the body eagerly) and replayed, in turns (eager,
+    replay, replay, eager; TIMED_STEPS steps each): median wall per step.
+    (c) One profiler window over ``steps`` eager steps and one over
+    ``steps`` replays: wall, device busy share, device ops per step; in the
+    replay window, the port's kernels launch by symbol exactly ``steps`` x
+    the per-step count. For the hybrid also one prefill of a 63-token
+    prompt, where its SSD kernel runs. Returns the numbers."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models.api import get_model
     from repro_torch.serving.engine import TorchEngine
@@ -2087,19 +2348,97 @@ def phase_profile(arch, steps=4):
     model = get_model(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(0), cfg)
     eng = TorchEngine(cfg, params, max_batch=8, max_len=SERVE_MAX_LEN)
+    assert eng.graph is not None, f"{arch}: the engine did not capture its decode step"
+    graph = eng.graph
     rng = np.random.default_rng(0)
     for rid in range(8):
-        eng.submit(rid, rng.integers(0, cfg.vocab_size, size=(48,)), 64)
+        eng.submit(rid, rng.integers(0, cfg.vocab_size, size=(48,)), 160)
     eng.step()                                   # 8 prefills + 1 decode step
     eng.step()
-    _profiled(f"decode step, 8 slots busy, {arch} bf16", eng.step, steps)
+
+    # (a) one replay against one eager step from copies of the same state
+    eng.tokens.copy_(eng.next_tokens)
+    cache = {k: v.clone() for k, v in eng.cache.items()}
+    with torch.no_grad():
+        want, _ = model.decode_step(params, cfg, cache, eng.tokens.clone())
+    got = eng.decode().clone()
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    _check(f"{arch} replay vs eager decode_step logits", got.float(), want.float(),
+           **TOL[torch.bfloat16])
+    same_tok = bool((got[:, :cfg.vocab_size].argmax(-1) == want[:, :cfg.vocab_size].argmax(-1))
+                    .all())
+    print(f"[graph] {arch}: one replay vs one eager decode_step from copies of the same cache "
+          f"and tokens: logits max abs err {err:.3g} (bf16 atol/rtol 2e-2; bit for bit "
+          f"{bool(torch.equal(got, want))}), greedy tokens equal {same_tok}")
+    del cache, want
+
+    # (b) wall per step, eager and replayed, in turns
+    def run(mode, n):
+        eng.graph = None if mode == "eager" else graph
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            eng.step()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    walls = {"eager": [], "replay": []}
+    for mode in ("eager", "replay", "replay", "eager"):
+        walls[mode].append(run(mode, TIMED_STEPS))
+    wall = {m: statistics.mean(v) for m, v in walls.items()}
+
+    # (c) a profiler window over each
+    per_step = _per_call_launches(cfg)["decode"]
+    eng.graph = None
+    eager = _profiled(f"decode step eager, 8 slots busy, {arch} bf16", eng.step, steps)
+    eng.graph = graph
+    replays0 = eng.replays
+    replay = _profiled(f"decode step replayed, 8 slots busy, {arch} bf16", eng.step, steps)
+    assert eng.replays - replays0 == steps and all(s is not None for s in eng.slots)
+    want_launches = {op: steps * per_step[op] for op in KERNEL_SYMBOLS}
+    assert replay["launches"] == want_launches, \
+        f"{arch}: {steps} replays launched {replay['launches']}, want {want_launches}"
+    print(f"[graph] {arch} on {_card()}: decode step wall eager {wall['eager']:.2f} ms, "
+          f"replayed {wall['replay']:.2f} ms (x{wall['eager'] / wall['replay']:.2f}; turns "
+          f"{json.dumps({m: [round(t, 3) for t in v] for m, v in walls.items()})}); device busy "
+          f"eager {100 * eager['busy_ms'] / eager['wall_ms']:.1f}% ({eager['ops']:.0f} ops/step),"
+          f" replayed {100 * replay['busy_ms'] / replay['wall_ms']:.1f}% ({replay['ops']:.0f} "
+          f"ops/step); kernels in {steps} replays {json.dumps(replay['launches'])} = {steps} x "
+          f"the per-step count")
     if cfg.family == "hybrid":
         toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 63)).astype(np.int32)).cuda()
         prefill = lambda: model.prefill(params, cfg, {"tokens": toks})  # noqa: E731
         prefill()
         _profiled(f"prefill of a 63-token prompt, {arch} bf16", prefill, 1)
-    del eng, params
+    del eng, params, graph
     torch.cuda.empty_cache()
+    return {"wall": wall, "eager": eager, "replay": replay, "err": err}
+
+
+def _graph_table(runs, multi, graphs):
+    """One line per served model, eager against captured: the decode step's
+    wall and the device's busy share and ops per step (phase_profile), and
+    tok/s and TPOT p50/p95 of its serving runs (phase_serve; glm4-9b's from
+    the multi-LLM driver, whose engines are captured)."""
+    card = _card()
+    for arch, g in graphs.items():
+        row = {"arch": arch, "card": card,
+               "wall_ms": {m: round(g["wall"][m], 3) for m in ("eager", "replay")},
+               "busy_pct": {m: round(100 * g[m]["busy_ms"] / g[m]["wall_ms"], 1)
+                            for m in ("eager", "replay")},
+               "ops_per_step": {m: round(g[m]["ops"]) for m in ("eager", "replay")},
+               "logits_max_abs_err": g["err"]}
+        if arch in runs:
+            row["serve"] = {label: {k: runs[arch][label]["summary"][k]
+                                    for k in ("tok_per_s", "tpot_p50_s", "tpot_p95_s")}
+                            for label in ("poisson5", "burst", "burst_eager")}
+            row["tokens_equal_eager_one_schedule"] = runs[arch]["tokens_equal_eager"]
+            row["poisson5_under_profiler"] = "device_launches" in runs[arch]["poisson5"]
+        elif arch in multi:
+            row["serve"] = {"multi_llm": {k: multi[arch][k]
+                                          for k in ("tok_per_s", "tpot_p50_s", "tpot_p95_s")}}
+        print(f"[graph-table] {json.dumps(row)}")
 
 
 # ---------------------------------------------------------------- phase 6
@@ -2240,22 +2579,34 @@ def phase_mesh(runs, train_peaks):
         assert mesh.device_type == "cuda" and mesh.size() == 1, mesh
         with use_mesh(mesh):
             for label, rate in (("poisson5", 5.0), ("burst", 1e6)):
-                with _Counted(model) as counted:
+                with _Counted(model) as counted, _engines() as engines:
                     finished, summary = serve(cfg, n_requests=16, rate=rate, max_batch=8,
                                               max_len=SERVE_MAX_LEN, seed=0, device="cuda")
                 launches, want = counted.launches(), counted.expected([cfg])
-                before, _, tokens = runs[MESH_ARCH][label]
+                before = runs[MESH_ARCH][label]
                 got = {rid: list(r.out_tokens) for rid, r in finished.items()}
+                (eng,) = engines
                 assert bool(counted.finite), f"mesh {label}: non-finite logits"
                 assert launches == want, f"mesh {label}: launches {launches}, want {want}"
-                assert got == tokens, f"mesh {label}: tokens differ from phase 4's without a mesh"
-                assert launches["flash_attention"] == before["flash_attention"], (launches, before)
+                assert got == before["tokens"], \
+                    f"mesh {label}: tokens differ from phase 4's without a mesh"
+                # the plain params are captured under the mesh as without it:
+                # decode_step called to warm up and under capture, then replays
+                assert eng["graph"] and counted.calls[cfg.name, "decode"] == 1 and \
+                    counted.calls[cfg.name, "capture"] == 1 and \
+                    eng["replays"] == eng["decode_rows"], (counted.calls, eng)
+                assert launches == before["launches"], (launches, before["launches"])
+                assert counted.captured() == before["captured"], \
+                    (counted.captured(), before["captured"])
                 if label == "burst":
-                    assert launches == before, f"mesh burst: launches {launches}, phase 4 {before}"
+                    assert eng["replays"] == before["replays"], \
+                        f"mesh burst: {eng['replays']} replays, phase 4 {before['replays']}"
                 print(f"[mesh] {MESH_ARCH} {label} under a one-rank {mesh.device_type} mesh "
                       f"{mesh}: {sum(map(len, got.values()))} tokens of 16 requests equal phase "
-                      f"4's without a mesh; kernels {json.dumps(launches)} (phase 4: "
-                      f"{json.dumps(before)}); {summary['tok_per_s']:.1f} tok/s")
+                      f"4's without a mesh; decode graph captured, {eng['replays']} replays "
+                      f"(phase 4: {before['replays']}); kernels by their wrappers "
+                      f"{json.dumps(launches)} (phase 4: {json.dumps(before['launches'])}); "
+                      f"{summary['tok_per_s']:.1f} tok/s")
         assert current_mesh() is None
     import torch.distributed as dist
     assert not dist.is_initialized()
@@ -2837,17 +3188,18 @@ def main():
         phase_train_parity(XLSTM, n_layers=XLSTM_PARITY_LAYERS, S=512, dtype="float64")
     with _timed(f"3 train parity {SSD_ARCH}"):
         phase_train_parity(SSD_ARCH, n_layers=SSD_PARITY_LAYERS, S=SSD_PARITY_S)
-    runs = {}
+    runs, graphs = {}, {}
     for arch in SERVE_ARCHS + HEAD_ARCHS:
         with _timed(f"4 serve {arch}"):
-            runs[arch] = phase_serve(arch)
+            runs[arch] = phase_serve(arch, profile_run=arch in (MAIN_ARCH, SSD_ARCH))
     with _timed("4 multi-LLM and model API"):
-        phase_multi_llm()
+        multi = phase_multi_llm()
         phase_model_api("whisper-base", B=8, S=16, profile_steps=4)
         phase_model_api("qwen2-vl-2b", B=2, S=32)
     with _timed("4 profiles"):
-        for arch in SERVE_ARCHS + ("glm4-9b",):
-            phase_profile(arch)
+        for arch in PROFILE_ARCHS:
+            graphs[arch] = phase_profile(arch)
+    _graph_table(runs, multi, graphs)
     trained, train_peaks = {}, {}
     for arch in TRAIN_SHAPES:
         with _timed(f"5 train {arch}"):
@@ -2864,17 +3216,26 @@ def main():
         _stop(child)
     # each kernel's launches on its path's run: the forward kernels on the
     # poisson5 serving run (granite's runs attention and the grouped matmul,
-    # zamba2's the SSD scan), the backward ones on granite's train run, the
-    # SSD scan's backward on zamba2's; each path's own counts per prefill,
-    # decode step and train step were checked in phases 4 and 5
+    # zamba2's the SSD scan), counted on the device by symbol in a profiler
+    # window over the run (the decode graph's replays included); the
+    # backward ones on granite's train run, the SSD scan's backward on
+    # zamba2's, counted by their wrappers. wrapper_launches: the wrappers'
+    # own counts in the same run (no replay); captured: the calls the decode
+    # graph's capture recorded. Each path's counts per prefill, decode step
+    # and train step were checked in phases 4 and 5.
     for r in kernels:
         if r["name"] in ("flash_attention_bwd", "grouped_matmul_dx", "grouped_matmul_dw"):
             arch, r["launches"] = MAIN_ARCH, trained[MAIN_ARCH][r["name"]]
+            r["wrapper_launches"], r["captured"] = r["launches"], 0
         elif r["name"] == "ssd_scan_bwd":
             arch, r["launches"] = SSD_ARCH, trained[SSD_ARCH][r["name"]]
+            r["wrapper_launches"], r["captured"] = r["launches"], 0
         else:
             arch = SSD_ARCH if r["name"] == "ssd_scan" else MAIN_ARCH
-            r["launches"] = runs[arch]["poisson5"][0][r["name"]]
+            run = runs[arch]["poisson5"]
+            r["launches"] = run["device_launches"][r["name"]]
+            r["wrapper_launches"] = run["launches"][r["name"]]
+            r["captured"] = run["captured"][r["name"]]
         assert r["launches"] > 0, f"{r['name']} was never launched on {arch}'s path"
     print(f"[done] all phases passed in {time.time() - t0:.1f}s")
     print(json.dumps({"kernels": kernels}))

@@ -64,6 +64,18 @@ def check_ssd_operands(what: str, compute, fp32) -> None:
             raise ValueError(f"{what}: operands must be contiguous in their last axis")
 
 
+def count_launch(wrapper) -> None:
+    """Count one launch of ``wrapper``'s kernel: in ``wrapper.launches``
+    where it ran, in ``wrapper.captured`` where a CUDA graph's capture only
+    recorded it (it runs at each replay of the graph, which no wrapper
+    sees). A build of torch without CUDA (a test that stubs the C entry
+    point) captures nothing."""
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        wrapper.captured += 1
+    else:
+        wrapper.launches += 1
+
+
 _observer = threading.local()
 
 

@@ -6,11 +6,23 @@ The kernel has no backward: a CUDA call that would need one (grad mode on
 and an input that requires grad) raises NotImplementedError, where the
 plain version on the CPU stays differentiable.
 ``decode_attention.launches`` counts kernel launches, and nothing else.
+A call that a CUDA graph's capture only records counts in
+``decode_attention.captured`` instead (``common.count_launch``).
 
 bf16 goes to the split-KV kernel: ``split_count`` picks its splits per
 (sequence, KV head) on the host from B, KH and Smax alone; fp32 to the
 CUDA-core kernel of one block per (sequence, KV head), which keeps the fp32
 sweeps' 2e-5.
+
+The serving engine captures this wrapper in a CUDA graph. Its first call
+on a stream does what a stream capture forbids or must not bake in: it
+builds and loads the kernel, reads the SM count (``_sm_count``), sets the
+split kernel's shared-memory attribute (a function-static
+``cudaFuncSetAttribute`` in the C entry point) and makes that stream's
+arrival counters (``_counters``). A warm-up call on the capture stream
+runs it all before capture; the calls inside a capture then reach only
+``cudaSetDevice`` (to the current device), the launch and
+``cudaGetLastError``, which a capture allows.
 """
 from __future__ import annotations
 
@@ -21,7 +33,8 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.common import (DTYPE_CODES, HEAD_DIMS, cdiv, check_aligned,
-                                        check_launch, check_operands, kernel_route, plain)
+                                        check_launch, check_operands, count_launch,
+                                        kernel_route, plain)
 from repro_torch.kernels.decode_attention import ref as _ref
 
 MAX_GROUP = 16   # query heads per KV head the kernel keeps in one block
@@ -45,6 +58,7 @@ def split_count(B: int, KH: int, Smax: int, sms: int) -> int:
 
 @lru_cache(None)
 def _sm_count(index: int) -> int:
+    """The card's SM count, read once (before any stream capture)."""
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
@@ -57,7 +71,16 @@ def _counters(device, stream: int, n: int) -> torch.Tensor:
     when allocated, and left at zero by every launch (its last block resets
     them), so no call needs a memset. Launches on one stream run in order,
     so they never share a counter at the same time; launches on two streams
-    may overlap, so each stream has its own buffer."""
+    may overlap, so each stream has its own buffer.
+
+    A CUDA graph captured on a stream bakes in that stream's buffer, which
+    must exist before capture (a warm-up call on the stream makes it):
+    made during capture it would come from the graph's private pool. The
+    invariant: a buffer baked into a graph is never shared by two graphs
+    or streams that can run at the same time. Each serving engine captures
+    on a side stream of its own; stream handles come from a pool and may
+    recur, so two engines on one card (the multi-LLM driver) can share a
+    buffer, and they replay in turn on one stream."""
     key = (device, stream)
     buf = _COUNTERS.get(key)
     if buf is None or buf.numel() < n:
@@ -127,8 +150,8 @@ def decode_attention(q, k_cache, v_cache, lengths, *, scale=None, window=0):
                  VARIANTS["split" if q.dtype == torch.bfloat16 else "fma"],
                  q.device.index, stream)
     check_launch(err, "decode_attention kernel launch")
-    decode_attention.launches += 1
+    count_launch(decode_attention)
     return out
 
 
-decode_attention.launches = 0
+decode_attention.launches = decode_attention.captured = 0

@@ -4,7 +4,8 @@ A CUDA tensor goes to a hand-written kernel (``csrc/flash_attention.cu``,
 ``csrc/flash_attention_bwd.cu``) or the call raises; a CPU tensor goes to
 the plain versions in ``ref.py``. ``flash_attention.launches`` counts
 forward kernel launches and ``flash_attention_bwd.launches`` backward ones,
-and nothing else.
+and nothing else; a call that a CUDA graph's capture only records counts in
+the wrapper's ``captured`` instead (``common.count_launch``).
 
 bf16 goes to the tensor-core kernels, whose blocks serve all query heads of
 one KV head; fp32 to the CUDA-core kernels, which keep the fp32 sweeps'
@@ -30,7 +31,8 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.common import (DTYPE_CODES, HEAD_DIMS, cdiv, check_aligned,
-                                        check_launch, check_operands, kernel_route, plain)
+                                        check_launch, check_operands, count_launch,
+                                        kernel_route, plain)
 from repro_torch.kernels.flash_attention import ref as _ref
 
 VARIANTS = {"fma": 0, "mma": 1}   # the C entry points' `variant`
@@ -52,6 +54,7 @@ def dkdv_splits(B: int, Sk: int, KH: int, G: int, sms: int) -> int:
 
 @lru_cache(None)
 def _sm_count(index: int) -> int:
+    """The card's SM count, read once (before any stream capture)."""
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
@@ -124,7 +127,7 @@ def _forward(route, q, k, v, causal, window, scale, with_lse):
                  _scale(scale, D), VARIANTS["mma" if q.dtype == torch.bfloat16 else "fma"],
                  q.device.index, torch.cuda.current_stream(q.device).cuda_stream)
     check_launch(err, "flash_attention kernel launch")
-    flash_attention.launches += 1
+    count_launch(flash_attention)
     return out, lse
 
 
@@ -164,7 +167,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     return _forward(route, q, k, v, causal, window, scale, False)[0]
 
 
-flash_attention.launches = 0
+flash_attention.launches = flash_attention.captured = 0
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True, window: int = 0,
@@ -200,8 +203,8 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True, window:
                      VARIANTS["mma" if mma else "fma"], splits, q.device.index,
                      torch.cuda.current_stream(q.device).cuda_stream)
     check_launch(err, "flash_attention_bwd kernel launch")
-    flash_attention_bwd.launches += 1
+    count_launch(flash_attention_bwd)
     return dq, dk, dv
 
 
-flash_attention_bwd.launches = 0
+flash_attention_bwd.launches = flash_attention_bwd.captured = 0

@@ -11,7 +11,8 @@ reverse pass (``ref.ssd_backward_reference``) on a CPU one. As in the JAX
 package only y is differentiable there: a CUDA call with ``with_state``
 under grad raises NotImplementedError.
 ``ssd_scan.launches`` and ``ssd_scan_bwd.launches`` count kernel launches,
-and nothing else. bf16 x/B/C go to the forward's tensor-core kernel where
+and nothing else; a call that a CUDA graph's capture only records counts in
+the wrapper's ``captured`` instead (``common.count_launch``). bf16 x/B/C go to the forward's tensor-core kernel where
 ``takes_mma`` holds (P and the strides of x, B and C multiples of 8, the
 operands 16-byte aligned, as the model's conv-buffer slices are); fp32, and
 bf16 operands it does not take, to the CUDA-core kernel. The backward is
@@ -34,7 +35,8 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.common import (DTYPE_CODES, cdiv, check_launch,
-                                        check_ssd_operands, kernel_route, plain)
+                                        check_ssd_operands, count_launch, kernel_route,
+                                        plain)
 from repro_torch.kernels.mamba_scan import ref as _ref
 
 STATE_DIMS = (16, 32, 64, 128)   # N the CUDA kernels are instantiated for
@@ -233,7 +235,7 @@ def _launch(x, dt, A, Bmat, Cmat, D, init_state):
                  VARIANTS["mma" if takes_mma(x, Bmat, Cmat) else "fma"], x.device.index,
                  torch.cuda.current_stream(x.device).cuda_stream)
     check_launch(err, "ssd_scan kernel launch")
-    ssd_scan.launches += 1
+    count_launch(ssd_scan)
     return y, final
 
 
@@ -279,7 +281,7 @@ def ssd_scan(x, dt, A, Bmat, Cmat, D, init_state=None, *, with_state=False):
     return (y, final) if with_state else y
 
 
-ssd_scan.launches = 0
+ssd_scan.launches = ssd_scan.captured = 0
 
 
 def ssd_scan_bwd(x, dt, A, Bmat, Cmat, D, init_state, dy):
@@ -303,7 +305,7 @@ def ssd_scan_bwd(x, dt, A, Bmat, Cmat, D, init_state, dy):
     plan = bwd_plan(Bsz, S, H, P, Bmat.shape[-1], x.dtype, variant, _sm_count(x.device.index),
                     init=init_state is not None)
     grads = _bwd_launch(plan, x, dt, A, Bmat, Cmat, D, init_state, dy)
-    ssd_scan_bwd.launches += 1
+    count_launch(ssd_scan_bwd)
     return grads
 
 
@@ -338,6 +340,6 @@ def _bwd_launch(plan, x, dt, A, Bmat, Cmat, D, init_state, dy):
     return dx, ddt, dA, dB, dC, dD, dinit
 
 
-ssd_scan_bwd.launches = 0
+ssd_scan_bwd.launches = ssd_scan_bwd.captured = 0
 
 decode_step = _ref.ssd_decode_step

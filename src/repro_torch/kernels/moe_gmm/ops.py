@@ -5,7 +5,8 @@ A CUDA tensor goes to a hand-written kernel (``csrc/moe_gmm.cu``) or the
 call raises; a CPU tensor goes to the plain versions in ``ref.py``.
 ``grouped_matmul.launches`` counts the product's kernel launches,
 ``grouped_matmul_dx.launches`` and ``grouped_matmul_dw.launches`` those of
-its gradients, and nothing else.
+its gradients, and nothing else; a call that a CUDA graph's capture only
+records counts in the wrapper's ``captured`` instead (``common.count_launch``).
 
 bf16 operands with 16-byte rows (``takes_mma``) go to a tensor-core
 kernel, everything else to the CUDA-core kernel: below TILED_MIN_C capacity
@@ -19,6 +20,13 @@ and dw = x^T g, each one launch of the grouped GEMM (``repro_grouped_gemm``)
 on the untransposed tensors, the layout given by the operands' strides:
 bf16 operands with 16-byte rows on the TMA/wgmma kernel, everything else on
 its CUDA-core variant.
+
+The serving engine captures the product in a CUDA graph (the MoE decode
+step, C = 4 on ``gmm_mma_kernel``). The first call builds and loads the
+kernel and runs the function-static ``cudaFuncSetAttribute`` of the C entry
+point; a warm-up call before capture does both, and inside a capture the
+entry point reaches only ``cudaSetDevice`` (to the current device), the
+launch and ``cudaGetLastError``.
 """
 from __future__ import annotations
 
@@ -29,7 +37,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.common import (DTYPE_CODES, check_launch, check_operands,
-                                        kernel_route, plain)
+                                        count_launch, kernel_route, plain)
 from repro_torch.kernels.moe_gmm import ref as _ref
 
 VARIANTS = {"fma": 0, "mma": 1}   # the C entry points' `variant` (1: tensor cores)
@@ -130,7 +138,7 @@ def _product(device, x, w):
     aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
     out = _gemm(x, w, "nn", C, f, d) if route(x.dtype, C, d, f, aligned) == "tiled" \
         else _launch(x, w)
-    grouped_matmul.launches += 1
+    count_launch(grouped_matmul)
     return out
 
 
@@ -147,7 +155,7 @@ def grouped_matmul(x, w):
     return _product(route, x, w)
 
 
-grouped_matmul.launches = 0
+grouped_matmul.launches = grouped_matmul.captured = 0
 
 
 def grouped_matmul_dx(g, w):
@@ -162,11 +170,11 @@ def grouped_matmul_dx(g, w):
         return plain(_ref.gmm_dx_reference, g, w)
     C, f = g.shape[1:]
     out = _gemm(g, w, "nt", C, w.shape[1], f)
-    grouped_matmul_dx.launches += 1
+    count_launch(grouped_matmul_dx)
     return out
 
 
-grouped_matmul_dx.launches = 0
+grouped_matmul_dx.launches = grouped_matmul_dx.captured = 0
 
 
 def grouped_matmul_dw(x, g):
@@ -182,8 +190,8 @@ def grouped_matmul_dw(x, g):
         return plain(_ref.gmm_dw_reference, x, g)
     C, d = x.shape[1:]
     out = _gemm(x, g, "tn", d, g.shape[2], C)
-    grouped_matmul_dw.launches += 1
+    count_launch(grouped_matmul_dw)
     return out
 
 
-grouped_matmul_dw.launches = 0
+grouped_matmul_dw.launches = grouped_matmul_dw.captured = 0

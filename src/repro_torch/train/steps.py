@@ -1,7 +1,8 @@
-"""The loss and the train step.
+"""The loss and the train, prefill and serve steps.
 
 A port of the JAX package's ``train/steps.py`` (``loss_fn``,
-``make_train_step``). The gradient is taken by autograd through the model's
+``make_train_step``, ``make_prefill_step``, ``make_serve_step``). The
+gradient is taken by autograd through the model's
 forward, whose attention and expert products run in the hand-written
 kernels and their backward kernels (``kernels/flash_attention``,
 ``kernels/moe_gmm``) on the card.
@@ -55,3 +56,22 @@ def make_train_step(cfg, oc: opt.OptConfig):
         metrics = {k: v.detach() if torch.is_tensor(v) else v for k, v in metrics.items()}
         return params, opt_state, dict(metrics, loss=loss.detach(), **om)
     return train_step
+
+
+def make_prefill_step(cfg):
+    """prefill_step(params, batch, last=None) -> (logits, cache): the
+    family's prefill, ``last`` (B,) int32 the position whose logits come
+    back (the last one when None)."""
+    def prefill_step(params, batch, last=None):
+        return model_api.get_model(cfg).prefill(params, cfg, batch, last)
+    return prefill_step
+
+
+def make_serve_step(cfg):
+    """serve_step(params, cache, tokens) -> (logits, cache): one decode step
+    of every slot. The family's decode_step writes the cache's K/V and
+    state tensors in place and returns a new ``len``; the serving engine
+    captures this function in its CUDA graph on the card."""
+    def serve_step(params, cache, tokens):
+        return model_api.get_model(cfg).decode_step(params, cfg, cache, tokens)
+    return serve_step
