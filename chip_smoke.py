@@ -113,14 +113,21 @@ Phases; any failure exits non-zero and no phase's failure is caught:
      under capture (checked for what the wrappers record, and that nothing
      launches), the replays equal the engine's decode rows, and the
      isfinite check captured with the step holds every replay's logits.
+     Each engine also captures one prefill graph per prompt shape (the
+     bucket; a recurrent prompt's exact length) at its first admission (a
+     warm-up prefill, checked for its launches, and one under capture,
+     checked for what it records) and replays it at every later admission:
+     captures + prefill replays = admissions.
      granite's and zamba2's poisson5 runs each run inside one profiler
      window, whose device launches of the kernels, by symbol, must be the
-     wrappers' launches plus the replays x the per-step count (the kernels
-     line's launches). Each served model's burst trace also runs with the
-     capture skipped (eager steps, the harness's yardstick for tok/s and
-     TPOT), and the burst's requests are drained on one schedule by a
-     captured and an eager engine: are the tokens equal, and where not, the
-     step and the top-2 logit margins. Then, for each served model and glm4-9b, an
+     wrappers' launches (the warm-ups) plus the decode replays x the
+     per-step count plus the prefill graphs' runs x the per-prefill count
+     (the kernels line's launches). Each served model's burst and poisson5
+     traces also run with both captures skipped (eager prefills and steps,
+     the harness's yardstick for tok/s, TTFT and TPOT), and the burst's
+     requests are drained on one schedule by a captured and an eager
+     engine: are the tokens equal, and where not, the step and the top-2
+     logit margins. Then, for each served model and glm4-9b, an
      engine with 8 slots busy: one replay's logits against one eager
      decode_step's from copies of the same cache and tokens (bf16 2e-2),
      the step's wall eager and replayed in turns, and one profiler window
@@ -129,7 +136,14 @@ Phases; any failure exits non-zero and no phase's failure is caught:
      which the replays launch each kernel, counted by symbol, exactly
      steps x its per-step count; one [graph-table] line per model
      (the walls, busy shares, ops per step, tok/s and TPOT p50/p95 of its
-     captured and eager serving runs). Whisper-base's decode steps (the
+     captured and eager serving runs). The same engine's prefill: one
+     replay against one eager prefill_body of the same prompt into the
+     same slot of a copy of the cache (first token, logits and cache bit
+     for bit), the admission's wall eager and replayed in turns at 16, 32
+     and 64 tokens, the first use's seconds, a profiler window over 4
+     replays (its kernels by symbol = 4 x the per-prefill count); one
+     [prefill-table] line per model (those walls, the captures of its
+     serving runs and their seconds, TTFT p50/p95 captured and eager). Whisper-base's decode steps (the
      model API) are profiled too, and one zamba2 prefill of a 63-token
      prompt, the only place the SSD kernel runs.
   5. train: qwen2-1.5b (28 layers, B=4, S=512), granite-moe-3b-a800m
@@ -147,8 +161,8 @@ Phases; any failure exits non-zero and no phase's failure is caught:
      NCCL mesh (make_debug_mesh on the card, an in-process store) with
      phase 4's traces: every request's tokens and every call's launches as
      in phase 4 without a mesh (the params are plain tensors, so the engine
-     captures its graph under the mesh too; the burst run replays it as
-     often as phase 4's); the dry-run (launch/dryrun.py, in two child
+     captures its graphs under the mesh too: phase 4's prefill shapes and
+     prefill replays, and in the burst run as many decode replays); the dry-run (launch/dryrun.py, in two child
      processes: the fake process group cannot share one with NCCL) of
      phase 5's qwen2-1.5b and granite-moe-3b-a800m steps on a 1x1 mesh,
      its params + optimizer bytes within 1% of what the card holds after
@@ -199,12 +213,12 @@ granite's poisson5 run, the SSD scan at zamba2-1.2b's prefill shape with its
 launches from zamba2's poisson5 run, the flash backward and the grouped
 matmul's dx and dw at granite's training shapes with their launches from
 granite's train run, the SSD scan's backward at zamba2-1.2b's training
-shape with its launches from zamba2's train run. In serving, decode
-attention and the grouped matmul launch from the decode graph's replays,
+shape with its launches from zamba2's train run. In serving, every
+forward kernel launches from the graphs' replays (prefill and decode),
 which no wrapper sees: there ``launches`` is the device's count by kernel
 symbol in one profiler window over the poisson5 run, ``wrapper_launches``
-the wrappers' own (prefills, the warm-up before capture) and ``captured``
-what the capture recorded; in training all three come from the wrappers
+the wrappers' own (the warm-ups before each capture) and ``captured``
+what the captures recorded; in training all three come from the wrappers
 (launches = wrapper_launches, captured 0). The last line is
 {"ok": true, "device": {...}}.
 """
@@ -1744,16 +1758,19 @@ def _per_call_launches(cfg):
                        "ssd_scan": 0}}
 
 
+CAPTURES = ("prefill_capture", "decode_capture")
+
+
 class _Counted:
     """For the length of a ``with``, wraps a family module's prefill and
     decode_step (the engine and the model API call them through the module):
     every call must launch each kernel exactly as _per_call_launches says
-    for the config it is given, and a decode_step that a CUDA graph's
-    capture records (kind "capture") must record each kernel so, in the
-    wrappers' ``captured`` counts, and launch none. Counts the calls per
-    (model, kind) and keeps whether every logit was finite (the check is
-    recorded with a captured call and runs at each replay); on entry sets
-    every launch and capture count to 0."""
+    for the config it is given, and a prefill or decode_step that a CUDA
+    graph's capture records (kinds "prefill_capture", "decode_capture")
+    must record each kernel so, in the wrappers' ``captured`` counts, and
+    launch none. Counts the calls per (model, kind) and keeps whether every
+    logit was finite (the check is recorded with a captured call and runs
+    at each replay); on entry sets every launch and capture count to 0."""
 
     def __init__(self, model):
         self.model = model
@@ -1771,7 +1788,7 @@ class _Counted:
             recorded = {n: op.captured - before[n][1] for n, op in self.ops.items()}
             got, none = (recorded, launched) if capture else (launched, recorded)
             want = {n: _per_call_launches(cfg)[kind].get(n, 0) for n in self.ops}
-            kind_ = "capture" if capture else kind
+            kind_ = f"{kind}_capture" if capture else kind
             assert got == want and not any(none.values()), \
                 f"{cfg.name} {kind_}: launched {launched}, captured {recorded}, want {want}"
             self.calls[cfg.name, kind_] = self.calls.get((cfg.name, kind_), 0) + 1
@@ -1787,8 +1804,8 @@ class _Counted:
 
     def expected(self, cfgs, kinds=("prefill", "decode")):
         """Launches the counted calls of the models ``cfgs`` must have made
-        (with ``kinds=("capture",)``, what their captures must have recorded)."""
-        return {n: sum(_per_call_launches(c)["decode" if k == "capture" else k].get(n, 0)
+        (with ``kinds=CAPTURES``, what their captures must have recorded)."""
+        return {n: sum(_per_call_launches(c)[k.removesuffix("_capture")].get(n, 0)
                        * self.calls.get((c.name, k), 0) for c in cfgs for k in kinds)
                 for n in self.ops}
 
@@ -1802,25 +1819,43 @@ class _Counted:
         self.model.prefill, self.model.decode_step = self.real["prefill"], self.real["decode"]
 
 
+def _eager_prefill(eng, n):
+    """The engine's prefill body run eagerly on its static buffers: the
+    harness's yardstick for a prefill graph's replay."""
+    from repro_torch.serving.engine import prefill_body
+    prefill_body(*eng._prefill_args(n))
+    return eng.prefill_logits
+
+
 @contextlib.contextmanager
 def _engines(eager=False, margins=False):
     """Records what every TorchEngine made inside the ``with`` did: yields a
     list that is filled on exit with one dict per engine (its model,
-    whether it captured its graph, its replays, its decode rows, and with
-    ``margins`` its decode calls' top-2 logit margins per slot and the
-    slots active in each), and drops the engines themselves. ``eager``: the
-    engines skip their capture and run the decode body eagerly on the card,
-    the harness's yardstick for the graph (the engine itself never falls
-    back to eager steps on the card)."""
+    whether it captured its decode graph, its replays, its decode rows; the
+    shapes of its prefill graphs, their replays after capture, the seconds
+    of each capture (warm-up, capture, first replay, to a synchronize), its
+    prefill rows and their shapes; and with ``margins`` its decode calls'
+    top-2 logit margins per slot and the slots active in each), and drops
+    the engines themselves. ``eager``: the engines skip their decode
+    capture and run every prefill and decode body eagerly on the card, the
+    harness's yardstick for the graphs (the engine itself never falls back
+    to eager steps on the card)."""
     from repro_torch.serving.engine import TorchEngine
 
-    made, real = [], (TorchEngine.__init__, TorchEngine._capture, TorchEngine.decode)
+    made, real = [], (TorchEngine.__init__, TorchEngine._capture, TorchEngine.decode,
+                      TorchEngine.prefill, TorchEngine._capture_prefill)
     out = []
 
     def init(self, *a, **kw):
-        self.decodes = []
+        self.decodes, self.capture_s = [], []
         real[0](self, *a, **kw)
         made.append(self)
+
+    def capture_prefill(self, n):
+        t0 = time.perf_counter()
+        real[4](self, n)
+        torch.cuda.synchronize()
+        self.capture_s.append(time.perf_counter() - t0)
 
     def decode(self):
         logits = real[2](self)
@@ -1831,15 +1866,21 @@ def _engines(eager=False, margins=False):
         return logits
 
     TorchEngine.__init__, TorchEngine.decode = init, decode
+    TorchEngine._capture_prefill = capture_prefill
     if eager:
-        TorchEngine._capture = lambda self: None
+        TorchEngine._capture, TorchEngine.prefill = (lambda self: None), _eager_prefill
     try:
         yield out
     finally:
-        TorchEngine.__init__, TorchEngine._capture, TorchEngine.decode = real
+        (TorchEngine.__init__, TorchEngine._capture, TorchEngine.decode, TorchEngine.prefill,
+         TorchEngine._capture_prefill) = real
         for e in made:
+            shapes = [n for k, n, _ in e.iteration_log if k == "prefill"]
             out.append({"arch": e.cfg.name, "graph": e.graph is not None, "replays": e.replays,
                         "decode_rows": sum(k == "decode" for k, _, _ in e.iteration_log),
+                        "prefill_graphs": sorted(e.prefill_graphs),
+                        "prefill_replays": e.prefill_replays, "capture_s": e.capture_s,
+                        "prefill_rows": len(shapes), "prefill_shapes": sorted(set(shapes)),
                         "decodes": [(m.cpu(), act) for m, act in e.decodes]})
         made.clear()
 
@@ -1874,8 +1915,8 @@ def _token_diffs(what, got, want, got_decodes, want_decodes):
 
 def _same_schedule(cfg, reqs):
     """``reqs`` ({rid: (prompt, max_new)}) all submitted before the first
-    step to an engine that captures its decode step and to one that skips
-    the capture, on serve()'s params (seed 0), each drained: one schedule in
+    step to an engine that captures its decode step and its prefills and to
+    one that runs both eagerly, on serve()'s params (seed 0), each drained: one schedule in
     both, where serve()'s admissions follow the clock (and granite's expert
     capacity, hence its tokens, depends on which slots are busy). Prints
     and returns whether every token is equal."""
@@ -1892,7 +1933,9 @@ def _same_schedule(cfg, reqs):
             out[mode] = {rid: list(r.out_tokens) for rid, r in eng.drain().items()}
             del eng
         (e,) = engines
-        assert e["graph"] == (mode == "captured"), e
+        captured = mode == "captured"
+        assert e["graph"] == captured and \
+            e["prefill_graphs"] == (e["prefill_shapes"] if captured else []), e
         out[mode + " decodes"] = e["decodes"]
     del params
     torch.cuda.empty_cache()
@@ -1909,15 +1952,19 @@ def phase_serve(arch, profile_run=False):
     launches) and once under capture (checked for what it records, and
     that it launches nothing), the replays are counted and equal the
     engine's decode rows, and the captured isfinite of _Counted holds every
-    replay's logits. Every prefill is checked for its launches and finite
-    logits. With ``profile_run``, one torch.profiler window (device
-    activity) over the whole poisson5 run, the last of the three, counts the kernels' device
-    launches by symbol, which must be the wrappers' launches (prefills,
-    warm-up) plus the replays x the per-step count. The burst trace runs
-    once more with the capture skipped (eager decode steps, each checked),
-    for the eager tok/s and TPOT; the burst's requests are drained on one
-    schedule by a captured and an eager engine (_same_schedule), whose
-    tokens are compared."""
+    replay's logits. Each prefill shape is captured at its first admission
+    (one warm-up prefill, checked for its launches, and one under capture,
+    checked for what it records) and every later admission of it is a
+    replay: captures + prefill replays = admissions. With ``profile_run``,
+    one torch.profiler window (device activity) over the whole poisson5
+    run, the last of the four, counts the kernels' device launches by
+    symbol, which must be the wrappers' launches (the warm-ups) plus the
+    decode replays x the per-step count plus the prefill graphs' runs
+    (captures and replays) x the per-prefill count. The burst and poisson5
+    traces run once more with both captures skipped (eager prefill and
+    decode steps, each checked), for the eager tok/s, TTFT and TPOT; the
+    burst's requests are drained on one schedule by a captured and an
+    eager engine (_same_schedule), whose tokens are compared."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs.registry import get_config
@@ -1926,7 +1973,7 @@ def phase_serve(arch, profile_run=False):
 
     cfg = get_config(arch)
     model = get_model(cfg)      # the family's module, which the engine calls
-    per_step = _per_call_launches(cfg)["decode"]
+    per_step, per_prefill = (_per_call_launches(cfg)[k] for k in ("decode", "prefill"))
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     with _Counted(model) as warm, _engines():
@@ -1934,50 +1981,59 @@ def phase_serve(arch, profile_run=False):
         serve(cfg, n_requests=2, rate=1e3, max_len=SERVE_MAX_LEN, seed=1, device="cuda")
     assert bool(warm.finite), f"{arch} warm-up: non-finite logits"
     runs = {}
-    # the profiled poisson5 run last: the burst runs' tok/s and TPOT are
-    # taken before it, with no profiler's events alive in the process
+    # the profiled poisson5 run last: the other runs' tok/s, TTFT and TPOT
+    # are taken before it, with no profiler's events alive in the process
     for label, rate, eager in (("burst", 1e6, False), ("burst_eager", 1e6, True),
-                               ("poisson5", 5.0, False)):
+                               ("poisson5_eager", 5.0, True), ("poisson5", 5.0, False)):
         profiled = profile_run and label == "poisson5"
         window = profile(activities=[ProfilerActivity.CUDA]) if profiled \
             else contextlib.nullcontext()
         with _Counted(model) as counted, _engines(eager) as engines, window as prof:
+            if profiled:
+                _window_prelude()
             finished, summary = serve(cfg, n_requests=16, rate=rate, max_batch=8,
                                       max_len=SERVE_MAX_LEN, seed=0, device="cuda")
             torch.cuda.synchronize()
             if profiled:
-                # the trace keeps only device events that end before its
-                # stop on the host's clock, onto which the device's
-                # timestamps are mapped: a margin, so that no offset between
-                # the two clocks drops the run's last replays
-                time.sleep(0.5)
+                time.sleep(WINDOW_TAIL_S)
             t_run = time.perf_counter()
         t_exit = time.perf_counter() - t_run
         launches, captured = counted.launches(), counted.captured()
-        calls = {k: counted.calls.get((cfg.name, k), 0) for k in ("prefill", "decode", "capture")}
+        calls = {k: counted.calls.get((cfg.name, k), 0)
+                 for k in ("prefill", "decode") + CAPTURES}
         (eng,) = engines
+        graphs = eng["prefill_graphs"]
         assert len(finished) == 16, f"{label}: {len(finished)} of 16 requests finished"
         assert bool(counted.finite), f"{arch} {label}: non-finite logits"
-        assert calls["prefill"] == 16 and eng["decode_rows"] > 0, (calls, eng["decode_rows"])
+        assert eng["prefill_rows"] == 16 and eng["decode_rows"] > 0, eng
         if eager:
-            assert not eng["graph"] and eng["replays"] == 0 and calls["capture"] == 0 and \
+            assert not eng["graph"] and eng["replays"] == 0 and not graphs and \
+                eng["prefill_replays"] == 0 and calls["decode_capture"] == 0 and \
+                calls["prefill_capture"] == 0 and calls["prefill"] == 16 and \
                 calls["decode"] == eng["decode_rows"], (calls, eng)
         else:
-            assert eng["graph"] and calls["decode"] == calls["capture"] == 1 and \
+            assert eng["graph"] and calls["decode"] == calls["decode_capture"] == 1 and \
                 eng["replays"] == eng["decode_rows"], f"{arch} {label}: {calls}, {eng}"
+            assert graphs == eng["prefill_shapes"] and \
+                calls["prefill"] == calls["prefill_capture"] == len(graphs) and \
+                len(graphs) + eng["prefill_replays"] == 16, f"{arch} {label}: {calls}, {eng}"
         want = counted.expected([cfg])
         assert launches == want, f"{arch} {label}: launches {launches}, want {want}"
-        want = counted.expected([cfg], ("capture",))
+        want = counted.expected([cfg], CAPTURES)
         assert captured == want, f"{arch} {label}: captured {captured}, want {want}"
-        print(f"[serve] {arch} {label}: rate {rate}/s, {calls['prefill']} prefills, "
-              + (f"{calls['decode']} eager decode steps" if eager else
-                 f"{eng['replays']} decode graph replays (decode_step called once to warm up, "
-                 f"once under capture)") + f", kernels launched by their wrappers "
+        cap_s = eng["capture_s"]
+        print(f"[serve] {arch} {label}: rate {rate}/s, " + (
+            f"{calls['prefill']} eager prefills, {calls['decode']} eager decode steps" if eager
+            else f"{len(graphs)} prefill graphs captured (shapes {graphs}; {sum(cap_s):.2f}s in "
+                 f"all, warm-up and first replay included) and {eng['prefill_replays']} "
+                 f"replayed, {eng['replays']} decode graph replays (decode_step called once to "
+                 f"warm up, once under capture)") + f", kernels launched by their wrappers "
               f"{json.dumps(launches)}" + ("" if eager else
-                                          f", recorded by the capture {json.dumps(captured)}"))
+                                          f", recorded by the captures {json.dumps(captured)}"))
         print(f"[serve] {arch} {label}: {json.dumps(summary)}")
         runs[label] = {"launches": launches, "captured": captured, "summary": summary,
-                       "replays": eng["replays"],
+                       "replays": eng["replays"], "prefill_graphs": graphs,
+                       "prefill_replays": eng["prefill_replays"], "capture_s": cap_s,
                        "tokens": {rid: list(r.out_tokens) for rid, r in finished.items()},
                        "requests": {rid: (r.prompt, r.max_new) for rid, r in finished.items()}}
         if profiled:
@@ -1988,14 +2044,18 @@ def phase_serve(arch, profile_run=False):
             device = _symbol_launches(collections.Counter(
                 e.name() for e in prof.profiler.kineto_results.events()
                 if e.device_type() == torch.autograd.DeviceType.CUDA))
-            want = {op: launches[op] + eng["replays"] * per_step[op] for op in KERNEL_SYMBOLS}
+            prefills = len(graphs) + eng["prefill_replays"]
+            want = {op: launches[op] + eng["replays"] * per_step[op] + prefills * per_prefill[op]
+                    for op in KERNEL_SYMBOLS}
             assert device == want, f"{arch} {label}: the device launched {device}, want {want}"
             runs[label]["device_launches"] = device
             prof = None
             gc.collect()
             print(f"[serve] {arch} {label}: the kernels' device launches in the run, counted by "
                   f"symbol in one profiler window over it: {json.dumps(device)} = the wrappers' "
-                  f"launches + {eng['replays']} replays x {json.dumps(per_step)} (the window "
+                  f"launches + {eng['replays']} decode replays x {json.dumps(per_step)} + "
+                  f"{prefills} prefill graph runs ({len(graphs)} first replays after capture, "
+                  f"{eng['prefill_replays']} replays) x {json.dumps(per_prefill)} (the window "
                   f"closed in {t_exit:.1f}s, counted in {time.perf_counter() - t0:.1f}s)")
     runs["tokens_equal_eager"] = _same_schedule(cfg, runs["burst"]["requests"])
     runs["peak_bytes"] = torch.cuda.max_memory_allocated()
@@ -2010,9 +2070,12 @@ def phase_multi_llm():
     round robin, the JAX example's trace (16 requests per model at 4 req/s
     per model). Every request finishes, every logit is finite, each engine
     captured its decode graph and replayed it once per decode row (two
-    graphs on one card, replayed in turn on one stream), and each engine's
-    prefills and its two decode_step calls (warm-up, capture) launch flash
-    and decode attention once per layer of its model."""
+    graphs on one card, replayed in turn on one stream), each engine
+    captured one prefill graph per shape it admitted and replayed it at
+    every later admission, and each engine's prefill and decode_step calls
+    (warm-ups and captures) launch or record flash and decode attention
+    once per layer of its model. Returns the summary per model, with each
+    engine's prefill captures, their seconds and its prefill replays."""
     from repro_torch.configs.registry import get_config
     from repro_torch.examples.serve_multi_llm import ARCHS, N_REQ, serve_multi_llm
     from repro_torch.models.api import get_model
@@ -2031,17 +2094,25 @@ def phase_multi_llm():
     assert sorted(e["arch"] for e in engines) == sorted(c.name for c in cfgs), engines
     for c in cfgs:
         (eng,) = [e for e in engines if e["arch"] == c.name]
-        assert counted.calls.get((c.name, "prefill")) == N_REQ and \
-            counted.calls.get((c.name, "decode")) == counted.calls.get((c.name, "capture")) == 1, \
-            counted.calls
+        graphs = eng["prefill_graphs"]
+        assert counted.calls.get((c.name, "decode")) == \
+            counted.calls.get((c.name, "decode_capture")) == 1, counted.calls
+        assert counted.calls.get((c.name, "prefill")) == \
+            counted.calls.get((c.name, "prefill_capture")) == len(graphs), counted.calls
         assert eng["graph"] and eng["replays"] == eng["decode_rows"] > 0, eng
+        assert graphs == eng["prefill_shapes"] and \
+            len(graphs) + eng["prefill_replays"] == eng["prefill_rows"] == N_REQ, eng
+        summary[c.name].update(prefill_graphs=graphs, prefill_replays=eng["prefill_replays"],
+                               capture_s=eng["capture_s"])
     launches, want = counted.launches(), counted.expected(cfgs)
     assert launches == want, f"multi-LLM: launches {launches}, want {want}"
-    captured, want = counted.captured(), counted.expected(cfgs, ("capture",))
+    captured, want = counted.captured(), counted.expected(cfgs, CAPTURES)
     assert captured == want, f"multi-LLM: captured {captured}, want {want}"
     print(f"[serve] multi-LLM {' + '.join(ARCHS)} full width: calls "
           f"{json.dumps({f'{m} {k}': n for (m, k), n in sorted(counted.calls.items())})}, "
           f"decode graph replays {json.dumps({e['arch']: e['replays'] for e in engines})}, "
+          f"prefill graphs {json.dumps({e['arch']: e['prefill_graphs'] for e in engines})} and "
+          f"replays {json.dumps({e['arch']: e['prefill_replays'] for e in engines})}, "
           f"kernels launched by their wrappers {json.dumps(launches)}, recorded by the "
           f"captures {json.dumps(captured)}")
     from repro_torch.obs.percentiles import percentiles
@@ -2268,22 +2339,42 @@ KERNEL_SYMBOLS = {"flash_attention": ("flash_fwd_kernel", "flash_mma_kernel"),
                   "decode_attention": ("decode_kernel", "decode_split_kernel"),
                   "grouped_matmul": ("gmm_kernel", "gmm_mma_kernel", "gmm_tiled_kernel"),
                   "ssd_scan": ("ssd_scan_kernel", "ssd_mma_kernel")}
+# A window whose device events are counted exactly opens with PRELUDE_KERNELS
+# marker kernels (torch.cuda._sleep's spin_kernel), synchronized, which no
+# count includes: the trace can lose a window's first few device events
+# (chip_profiler_window.py), even after the window sat idle. It
+# closes WINDOW_TAIL_S after the last sync: the trace keeps only device
+# events that end before its stop on the host's clock, onto which the
+# device's timestamps are mapped.
+PRELUDE_KERNELS = 64
+PRELUDE_SYMBOL = "spin_kernel"
+WINDOW_TAIL_S = 0.5
+
+
+def _window_prelude():
+    """The marker kernels that open a counted profiler window."""
+    for _ in range(PRELUDE_KERNELS):
+        torch.cuda._sleep(1)
+    torch.cuda.synchronize()
 
 
 def _profiled(what, fn, calls):
-    """One torch.profiler window over ``calls`` runs of ``fn``: prints the
-    wall time per call, the device's busy share, its split into the port's
-    kernel families and the rest, and the kernels by device time. Returns
-    _report_profile's numbers."""
+    """One torch.profiler window over ``calls`` runs of ``fn``, opened by
+    _window_prelude and closed WINDOW_TAIL_S after the last sync (both
+    outside the wall time): prints the wall time per call, the device's
+    busy share, its split into the port's kernel families and the rest, and
+    the kernels by device time. Returns _report_profile's numbers."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _window_prelude()
         t0 = time.perf_counter()
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) / calls * 1e3
+        time.sleep(WINDOW_TAIL_S)
     return _report_profile(what, prof, wall_ms, calls)
 
 
@@ -2311,8 +2402,10 @@ def _report_profile(what, prof, wall_ms, calls):
 
 
 def _device_events(prof):
-    """A finished profiler window's device events, aggregated by kernel."""
-    return [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    """A finished profiler window's device events, aggregated by kernel,
+    without _window_prelude's markers."""
+    return [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+            and PRELUDE_SYMBOL not in e.key]
 
 
 def _symbol_launches(counts):
@@ -2339,7 +2432,9 @@ def phase_profile(arch, steps=4):
     ``steps`` replays: wall, device busy share, device ops per step; in the
     replay window, the port's kernels launch by symbol exactly ``steps`` x
     the per-step count. For the hybrid also one prefill of a 63-token
-    prompt, where its SSD kernel runs. Returns the numbers."""
+    prompt, where its SSD kernel runs. (d) Prefill (_prefill_graph_rows):
+    one replay against one eager prefill_body, bit for bit, and the
+    admission's wall eager and replayed per shape. Returns the numbers."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models.api import get_model
     from repro_torch.serving.engine import TorchEngine
@@ -2411,9 +2506,93 @@ def phase_profile(arch, steps=4):
         prefill = lambda: model.prefill(params, cfg, {"tokens": toks})  # noqa: E731
         prefill()
         _profiled(f"prefill of a 63-token prompt, {arch} bf16", prefill, 1)
+    pre = _prefill_graph_rows(eng, rng)
     del eng, params, graph
     torch.cuda.empty_cache()
-    return {"wall": wall, "eager": eager, "replay": replay, "err": err}
+    return {"wall": wall, "eager": eager, "replay": replay, "err": err, "prefill": pre}
+
+
+PREFILL_TIMED = (16, 32, 64)   # prompt lengths: phase 4's buckets; exact shapes when recurrent
+PREFILL_CALLS = 10             # admissions per turn of the eager-against-replay timing
+
+
+def _prefill_graph_rows(eng, rng):
+    """An engine's prefill graphs against its prefill body run eagerly, into
+    slot 0 (the decode measurements are done; its request's cache is
+    overwritten). (a) A 48-token prompt, whose shape the engine admitted
+    and captured: the eager body into a copy of the cache, then one replay
+    into the engine's cache; the first token, the logits and the whole
+    cache bit for bit equal. (b) Per length of PREFILL_TIMED: the first
+    admission of a shape not yet captured (warm-up, capture, first replay:
+    the capture's seconds), then the admission's wall (row upload, prefill,
+    first token read back), eager and replayed in turns (eager, replay,
+    replay, eager; PREFILL_CALLS admissions each): the mean per admission.
+    (c) One profiler window over 4 replays of the 64-token shape: wall,
+    device busy, ops, and the port's kernels by symbol = 4 x the
+    per-prefill count. Returns the numbers."""
+    from repro_torch.serving.engine import prefill_body
+
+    cfg = eng.cfg
+    vocab = cfg.vocab_size
+    n = eng._load_prompt(0, rng.integers(0, vocab, size=(48,)))
+    assert n in eng.prefill_graphs, f"{cfg.name}: shape {n} was not captured"
+    eng._prefill_in[n].copy_(eng._prefill_host[:3 + n])
+    args = list(eng._prefill_args(n))
+    cache = {k: v.clone() for k, v in eng.cache.items()}
+    first, logits = torch.zeros_like(eng.first_token), torch.zeros_like(eng.prefill_logits)
+    args[3], args[8], args[9] = cache, first, logits
+    prefill_body(*args)
+    replays0 = eng.prefill_replays
+    tok = eng._prefill_into(n)
+    assert eng.prefill_replays == replays0 + 1
+    same = {"first token": tok == int(first),
+            "logits": torch.equal(eng.prefill_logits, logits),
+            **{f"cache {k}": torch.equal(eng.cache[k], cache[k]) for k in cache}}
+    assert all(same.values()), f"{cfg.name}: prefill replay vs eager body: {same}"
+    print(f"[prefill] {cfg.name}: one replay of the {n}-token shape vs the eager prefill_body "
+          f"of the same prompt into slot 0 of a copy of the cache: first token {tok}, logits "
+          f"and every cache entry ({', '.join(cache)}) bit for bit equal")
+    del cache
+
+    def turn(mode, m):
+        if mode == "eager":
+            eng.prefill = lambda k: _eager_prefill(eng, k)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(PREFILL_CALLS):
+            eng._prefill_into(m)
+        ms = (time.perf_counter() - t0) / PREFILL_CALLS * 1e3
+        eng.__dict__.pop("prefill", None)
+        return ms
+
+    rows = {}
+    for S in PREFILL_TIMED:
+        m = eng._load_prompt(0, rng.integers(0, vocab, size=(S,)))
+        first_ms = None
+        if m not in eng.prefill_graphs:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng._prefill_into(m)
+            first_ms = (time.perf_counter() - t0) * 1e3
+        walls = {"eager": [], "replay": []}
+        for mode in ("eager", "replay", "replay", "eager"):
+            walls[mode].append(turn(mode, m))
+        rows[m] = {"eager_ms": statistics.mean(walls["eager"]),
+                   "replay_ms": statistics.mean(walls["replay"]), "first_ms": first_ms,
+                   "turns": {k: [round(t, 3) for t in v] for k, v in walls.items()}}
+    per_prefill = _per_call_launches(cfg)["prefill"]
+    prof = _profiled(f"prefill replayed, {m}-token shape, {cfg.name} bf16",
+                     lambda: eng._prefill_into(m), 4)
+    want = {op: 4 * per_prefill[op] for op in KERNEL_SYMBOLS}
+    assert prof["launches"] == want, \
+        f"{cfg.name}: 4 prefill replays launched {prof['launches']}, want {want}"
+    print(f"[prefill] {cfg.name} on {_card()}: admission wall per shape, eager / replayed (ms, "
+          f"mean of {2 * PREFILL_CALLS} each; first use: warm-up, capture and first replay) "
+          + "; ".join(f"{m}: {r['eager_ms']:.2f} / {r['replay_ms']:.2f}"
+                      + (f" (first {r['first_ms']:.1f})" if r["first_ms"] else "")
+                      for m, r in rows.items())
+          + f"; 4 replays of the {m}-token shape launched {json.dumps(prof['launches'])}")
+    return {"rows": rows, "profile": prof}
 
 
 def _graph_table(runs, multi, graphs):
@@ -2439,6 +2618,46 @@ def _graph_table(runs, multi, graphs):
             row["serve"] = {"multi_llm": {k: multi[arch][k]
                                           for k in ("tok_per_s", "tpot_p50_s", "tpot_p95_s")}}
         print(f"[graph-table] {json.dumps(row)}")
+
+
+def _prefill_table(runs, multi, graphs):
+    """One line per served model and glm4-9b: the admission's wall per
+    prefill shape, eager against replayed, the first use's (warm-up,
+    capture, first replay), the replayed prefill's device busy time and ops
+    (_prefill_graph_rows); the prefill captures of its captured serving
+    runs, their seconds, and TTFT p50/p95 of the captured and eager runs
+    (phase_serve; glm4-9b's captured only, from the multi-LLM driver)."""
+    card = _card()
+    ms = lambda x: None if x is None else round(1e3 * x, 3)  # noqa: E731
+    for arch, g in graphs.items():
+        pre = g["prefill"]
+        prof = pre["profile"]
+        row = {"arch": arch, "card": card,
+               "wall_ms": {m: {k: round(r[k], 3) for k in ("eager_ms", "replay_ms")}
+                           for m, r in pre["rows"].items()},
+               "first_use_ms": {m: r["first_ms"] and round(r["first_ms"], 1)
+                                for m, r in pre["rows"].items()},
+               "replay_profiled": {"wall_ms": round(prof["wall_ms"], 3),
+                                   "busy_ms": round(prof["busy_ms"], 3),
+                                   "ops": round(prof["ops"])}}
+        if arch in runs:
+            row["captures"] = {label: {"shapes": runs[arch][label]["prefill_graphs"],
+                                       "seconds": round(sum(runs[arch][label]["capture_s"]), 3),
+                                       "replays": runs[arch][label]["prefill_replays"]}
+                               for label in ("burst", "poisson5")}
+            row["ttft_ms"] = {label: {mode: [ms(runs[arch][key]["summary"][f"ttft_p{q}_s"])
+                                             for q in (50, 95)]
+                                      for mode, key in (("eager", f"{label}_eager"),
+                                                        ("captured", label))}
+                              for label in ("burst", "poisson5")}
+        elif arch in multi:
+            m = multi[arch]
+            row["captures"] = {"multi_llm": {"shapes": m["prefill_graphs"],
+                                             "seconds": round(sum(m["capture_s"]), 3),
+                                             "replays": m["prefill_replays"]}}
+            row["ttft_ms"] = {"multi_llm": {"captured": [ms(m["ttft_p50_s"]),
+                                                         ms(m["ttft_p95_s"])]}}
+        print(f"[prefill-table] {json.dumps(row)}")
 
 
 # ---------------------------------------------------------------- phase 6
@@ -2591,10 +2810,18 @@ def phase_mesh(runs, train_peaks):
                 assert got == before["tokens"], \
                     f"mesh {label}: tokens differ from phase 4's without a mesh"
                 # the plain params are captured under the mesh as without it:
-                # decode_step called to warm up and under capture, then replays
+                # decode_step called to warm up and under capture, then
+                # replays; each prefill shape warmed up and captured at its
+                # first admission, then replayed, phase 4's shapes and counts
+                graphs = eng["prefill_graphs"]
                 assert eng["graph"] and counted.calls[cfg.name, "decode"] == 1 and \
-                    counted.calls[cfg.name, "capture"] == 1 and \
+                    counted.calls[cfg.name, "decode_capture"] == 1 and \
                     eng["replays"] == eng["decode_rows"], (counted.calls, eng)
+                assert graphs == before["prefill_graphs"] == eng["prefill_shapes"] and \
+                    counted.calls[cfg.name, "prefill"] == \
+                    counted.calls[cfg.name, "prefill_capture"] == len(graphs) and \
+                    eng["prefill_replays"] == before["prefill_replays"] == 16 - len(graphs), \
+                    (counted.calls, eng, before["prefill_graphs"], before["prefill_replays"])
                 assert launches == before["launches"], (launches, before["launches"])
                 assert counted.captured() == before["captured"], \
                     (counted.captured(), before["captured"])
@@ -2604,9 +2831,10 @@ def phase_mesh(runs, train_peaks):
                 print(f"[mesh] {MESH_ARCH} {label} under a one-rank {mesh.device_type} mesh "
                       f"{mesh}: {sum(map(len, got.values()))} tokens of 16 requests equal phase "
                       f"4's without a mesh; decode graph captured, {eng['replays']} replays "
-                      f"(phase 4: {before['replays']}); kernels by their wrappers "
-                      f"{json.dumps(launches)} (phase 4: {json.dumps(before['launches'])}); "
-                      f"{summary['tok_per_s']:.1f} tok/s")
+                      f"(phase 4: {before['replays']}); prefill graphs {graphs} captured and "
+                      f"replayed {eng['prefill_replays']} times (as in phase 4); kernels by "
+                      f"their wrappers {json.dumps(launches)} (phase 4: "
+                      f"{json.dumps(before['launches'])}); {summary['tok_per_s']:.1f} tok/s")
         assert current_mesh() is None
     import torch.distributed as dist
     assert not dist.is_initialized()
@@ -3200,6 +3428,7 @@ def main():
         for arch in PROFILE_ARCHS:
             graphs[arch] = phase_profile(arch)
     _graph_table(runs, multi, graphs)
+    _prefill_table(runs, multi, graphs)
     trained, train_peaks = {}, {}
     for arch in TRAIN_SHAPES:
         with _timed(f"5 train {arch}"):
@@ -3217,12 +3446,12 @@ def main():
     # each kernel's launches on its path's run: the forward kernels on the
     # poisson5 serving run (granite's runs attention and the grouped matmul,
     # zamba2's the SSD scan), counted on the device by symbol in a profiler
-    # window over the run (the decode graph's replays included); the
-    # backward ones on granite's train run, the SSD scan's backward on
+    # window over the run (the prefill and decode graphs' replays included);
+    # the backward ones on granite's train run, the SSD scan's backward on
     # zamba2's, counted by their wrappers. wrapper_launches: the wrappers'
-    # own counts in the same run (no replay); captured: the calls the decode
-    # graph's capture recorded. Each path's counts per prefill, decode step
-    # and train step were checked in phases 4 and 5.
+    # own counts in the same run (the warm-ups, no replay); captured: the
+    # calls the graphs' captures recorded. Each path's counts per prefill,
+    # decode step and train step were checked in phases 4 and 5.
     for r in kernels:
         if r["name"] in ("flash_attention_bwd", "grouped_matmul_dx", "grouped_matmul_dw"):
             arch, r["launches"] = MAIN_ARCH, trained[MAIN_ARCH][r["name"]]
